@@ -1,0 +1,110 @@
+"""PM2Lat predictor: kernel-differentiated throughput interpolation for
+compute ops + linear proxy-metric regression for memory-bound ops, aggregated
+sequentially over the op graph (paper §III-C).
+
+Kernel selection — which profiled table answers for an op — lives in
+``core/oracle.py`` (``KernelOracle``).  ``PredictionRow.kernel`` reports the
+kernel id the oracle actually selected (e.g. ``cublas@1024x1024``).  The
+arithmetic is the JAX package's, so the same store and features give
+bit-identical answers.  Decode, collective, parallel and training-step
+prediction come with later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+from repro_torch.configs import base as C
+from repro_torch.core import opgraph as og
+from repro_torch.core.memory_model import MemoryModel, class_of
+from repro_torch.core.oracle import KernelOracle
+from repro_torch.core.table import TableStore, ThroughputTable
+
+
+@dataclasses.dataclass
+class PredictionRow:
+    name: str
+    kind: str
+    seconds: float
+    kernel: str
+
+
+class PM2Lat:
+    def __init__(self, store: TableStore, device: str):
+        self.store = store
+        self.device = device
+        self.oracle = KernelOracle(store, device)
+        mm = store.memory_model
+        self.memory_model = MemoryModel.from_json(mm) if isinstance(mm, dict) else mm
+
+    # ----- per-op -----
+    def _matmul_table(self, op: og.MatmulOp,
+                      kernel: Optional[str]) -> ThroughputTable:
+        if kernel is not None:
+            return self.oracle.lookup(op.kind, kernel, op.dtype)
+        return self.oracle.select_matmul(op.kind, op.dtype, op.m, op.n,
+                                         batch=op.batch)
+
+    def _attention_table(self, op: og.AttentionOp,
+                         kernel: Optional[str]) -> ThroughputTable:
+        if op.phase != og.PREFILL:
+            raise NotImplementedError(
+                f"{op.phase!r} attention is priced by the decode slice")
+        if kernel is not None:
+            return self.oracle.lookup("attention", kernel, op.dtype)
+        return self.oracle.select_attention(op.dtype, op.skv,
+                                            head_dim=op.hd)
+
+    def predict_matmul(self, op: og.MatmulOp, kernel: str = None) -> float:
+        t = self._matmul_table(op, kernel)
+        return t.predict(op.m, op.n, op.k, batch=op.batch) * op.count
+
+    def predict_attention(self, op: og.AttentionOp,
+                          kernel: Optional[str] = None) -> float:
+        t = self._attention_table(op, kernel)
+        return op.flops / t.interpolate_throughput(op.skv)
+
+    def predict_memory(self, op: og.MemoryOp) -> float:
+        return self.memory_model.predict(op.features(),
+                                         class_of(op.snippet)) * op.count
+
+    def predict_op(self, op) -> PredictionRow:
+        if op.kind in ("matmul", "bmm"):
+            t = self._matmul_table(op, None)
+            sec = t.predict(op.m, op.n, op.k, batch=op.batch) * op.count
+            return PredictionRow(op.name, op.kind, sec, t.key.kernel)
+        if op.kind == "attention":
+            t = self._attention_table(op, None)
+            sec = op.flops / t.interpolate_throughput(op.skv)
+            return PredictionRow(op.name, "attention", sec, t.key.kernel)
+        if op.kind == "memory":
+            return PredictionRow(op.name, "memory", self.predict_memory(op),
+                                 "linreg")
+        raise NotImplementedError(
+            f"{op.kind!r} ops are priced by a later slice of the port")
+
+    # ----- model level -----
+    def predict_ops(self, ops: List) -> Tuple[float, List[PredictionRow]]:
+        rows = [self.predict_op(op) for op in ops]
+        return sum(r.seconds for r in rows), rows
+
+    def predict_model(self, cfg: C.ModelConfig, batch: int, seq: int,
+                      dtype: Optional[str] = None):
+        ops = og.enumerate_ops(cfg, batch, seq, dtype=dtype)
+        return self.predict_ops(ops)
+
+    def predict_blocks(self, cfg: C.ModelConfig, batch: int, seq: int,
+                       dtype: Optional[str] = None) -> List[float]:
+        """Per-transformer-block latency (for the partition planner)."""
+        per_layer = []
+        for li, kind in enumerate(cfg.layer_kinds):
+            one = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern),
+                                      block_pattern=(kind,))
+            ops = og.enumerate_ops(
+                dataclasses.replace(one, n_layers=1), batch, seq, dtype=dtype)
+            # strip embed/unembed/final-norm (not per-block)
+            ops = [o for o in ops
+                   if o.name not in ("embed", "unembed", "final_norm")]
+            total, _ = self.predict_ops(ops)
+            per_layer.append(total)
+        return per_layer

@@ -1,0 +1,170 @@
+"""Flash-attention forward kernel for Hopper, written by hand in CUDA C++
+(``csrc/flash_attention.cu``), with its plain PyTorch version.
+
+Replaces the TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention_kernel``: online
+softmax over KV tiles, causal (bottom-right aligned through ``q_offset``)
+and sliding-window masks that ADD ``NEG_INF = -1e30``, f32 m/l/acc, l
+clamped at 1e-30, every KV tile visited.  Like the matmul kernel, the
+(bq, bk) block configuration is a PM2Lat kernel identity (``fa_<bq>x<bk>``).
+
+The TPU family was re-derived for hd <= 128: a 512x512 f32 score tile is
+1 MiB, against 227 KB of shared memory a block.  Kept: ``fa_128x128``;
+added: ``fa_64x64``.  One query row per thread, so ``bq`` is also the
+block's thread count.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class FlashConfig:
+    bq: int
+    bk: int
+
+    @property
+    def name(self) -> str:
+        return f"fa_{self.bq}x{self.bk}"
+
+    def smem_bytes(self, hd: int) -> int:
+        """Shared memory of one block, all f32: the K/V tile, the scaled Q
+        tile and the score tile (padded rows)."""
+        return 4 * (self.bk * hd + self.bq * (hd + 1) + self.bq * (self.bk + 1))
+
+
+# Every (config, head dim) pair is instantiated in csrc/flash_attention.cu.
+CONFIGS: Tuple[FlashConfig, ...] = (
+    FlashConfig(64, 64),
+    FlashConfig(128, 128),
+)
+HEAD_DIMS = (16, 32, 64, 128)
+SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def select_config(Sq: int, Skv: int, hd: int) -> FlashConfig:
+    """The largest feasible config whose tiles divide both lengths, else
+    the smallest feasible one (the kernel masks ragged tails)."""
+    feasible = [c for c in CONFIGS if c.smem_bytes(hd) <= SMEM_BUDGET]
+    for c in sorted(feasible, key=lambda c: -(c.bq * c.bk)):
+        if Sq % c.bq == 0 and Skv % c.bk == 0:
+            return c
+    return min(feasible, key=lambda c: c.bq * c.bk)
+
+
+def flash_attention_plain(q, k, v, config: FlashConfig, *, causal=True,
+                          window: Optional[int] = None, q_offset: int = 0):
+    """The kernel's function in plain PyTorch, KV tile by KV tile with the
+    kernel's masking and online-softmax arithmetic.  q (B,Sq,H,hd), k/v
+    (B,Skv,Hkv,hd) -> (B,Sq,H,hd); query head h reads KV head h // (H/Hkv)."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    bk = config.bk
+    pad = (-Skv) % bk
+    heads = lambda x: x.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    qf = q.float().transpose(1, 2) * (1.0 / float(hd) ** 0.5)   # (B,H,Sq,hd)
+    kf = torch.nn.functional.pad(heads(k), (0, 0, 0, pad))       # (B,H,Skv+pad,hd)
+    vf = torch.nn.functional.pad(heads(v), (0, 0, 0, pad))
+    qp = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, H, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, H, Sq, 1), device=q.device)
+    acc = torch.zeros((B, H, Sq, hd), device=q.device)
+    for k0 in range(0, Skv + pad, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)           # (B,H,Sq,bk)
+        kp = k0 + torch.arange(bk, device=q.device)[None, :]
+        keep = kp < Skv
+        if causal:
+            keep = keep & (qp >= kp)
+            if window is not None:
+                keep = keep & ((qp - kp) < window)
+        s = s + torch.where(keep, 0.0, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        acc = acc * corr + p @ vf[:, :, k0:k0 + bk]
+    o = acc / torch.clamp(l, min=1e-30)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    lib = build.load("flash_attention")
+    fn = lib.pm2lat_flash_attention
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + \
+        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
+                           window: Optional[int] = None, q_offset: int = 0):
+    """q (BH,Sq,hd), k/v (BH,Skv,hd) -> (BH,Sq,hd), as the TPU kernel; or
+    q (B,Sq,H,hd), k/v (B,Skv,Hkv,hd) -> (B,Sq,H,hd) with H a multiple of
+    Hkv (GQA read in place).  Any Sq, Skv: the kernel masks ragged tails.
+    CUDA tensors launch the hand-written kernel (and count the launch); CPU
+    tensors take the plain version."""
+    three_d = q.dim() == 3
+    if three_d:
+        q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention_kernel: bad shapes {tuple(q.shape)}"
+                         f", {tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % Hkv:
+        raise ValueError(f"flash_attention_kernel: q {tuple(q.shape)} does "
+                         f"not match k/v {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention_kernel: dtypes must agree and be "
+                        f"one of {list(DTYPES)}")
+    if config not in CONFIGS or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_kernel: {config} at hd={hd} is not "
+                         f"instantiated (CONFIGS x HEAD_DIMS={HEAD_DIMS})")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention_kernel: window={window} must be "
+                         f"positive or None")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        o = flash_attention_plain(q, k, v, config, causal=causal,
+                                  window=window, q_offset=q_offset)
+    else:
+        o = _launch(q, k, v, config, causal, window, q_offset)
+    return o[:, :, 0] if three_d else o
+
+
+def _launch(q, k, v, config, causal, window, q_offset):
+    if not (q.is_cuda and q.device == k.device == v.device):
+        raise ValueError(f"flash_attention_kernel: tensors on {q.device}, "
+                         f"{k.device}, {v.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_kernel has no backward kernel yet "
+                           "(it comes with the training slice); call it under "
+                           "torch.no_grad()")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lib, fn = _entry()
+    err = fn(config.bq, config.bk, hd, DTYPES[q.dtype], q.data_ptr(),
+             k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, Sq, Skv,
+             int(bool(causal)), int(window or 0), int(q_offset),
+             1.0 / float(hd) ** 0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_attention")
+    flash_attention_kernel.launches += 1
+    return o
+
+
+flash_attention_kernel.launches = 0

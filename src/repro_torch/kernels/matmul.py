@@ -1,0 +1,127 @@
+"""Tiled matmul kernel for Hopper, written by hand in CUDA C++
+(``csrc/matmul.cu``), with its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/matmul.py::matmul_kernel``.  The
+(bm, bk, bn) block configuration IS the kernel identity in the PM2Lat sense
+(``mm_<bm>x<bk>x<bn>``): the same GEMM runs as genuinely different kernels
+with different shared-memory working sets, grid shapes and ragged-tail
+behavior.  ``select_config`` is the ``cublasLtMatmulAlgoGetHeuristic``
+analogue, scored against the card's shared memory instead of the TPU's VMEM.
+
+The TPU family was re-derived for the card: a block has 227 KB of shared
+memory and 255 registers a thread, so the TPU's 256- and 512-wide tiles are
+gone (a 256x256 f32 output tile alone is the whole 256 KB register file).
+Kept: ``mm_128x128x128`` (128 KB of f32 tiles, 64 accumulators a thread at
+256 threads) and the skinny-M ``mm_8x128x128``; added: ``mm_128x32x128``
+(short K steps, a quarter of the shared memory) and ``mm_64x64x64``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+
+@dataclasses.dataclass(frozen=True, order=True)
+class MatmulConfig:
+    bm: int
+    bk: int
+    bn: int
+
+    @property
+    def name(self) -> str:
+        return f"mm_{self.bm}x{self.bk}x{self.bn}"
+
+    def smem_bytes(self, dtype=torch.bfloat16) -> int:
+        """Shared memory of one block: the k-major A tile (one column of
+        padding) and the B tile, in the input type."""
+        return dtype.itemsize * (self.bk * (self.bm + 1) + self.bk * self.bn)
+
+
+# The kernel family; every entry is instantiated in csrc/matmul.cu.
+CONFIGS: Tuple[MatmulConfig, ...] = (
+    MatmulConfig(128, 128, 128),
+    MatmulConfig(128, 32, 128),
+    MatmulConfig(64, 64, 64),
+    MatmulConfig(8, 128, 128),      # skinny-M (decode-style GEMV-ish)
+)
+
+SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def select_config(M: int, N: int, K: int,
+                  dtype=torch.bfloat16) -> MatmulConfig:
+    """Deterministic config oracle (PM2Lat's heuristic-API analogue).
+
+    Prefers the largest feasible tiles with the least padding waste,
+    skinny tiles for small M (decode).
+    """
+    best, best_score = None, None
+    for c in CONFIGS:
+        if c.smem_bytes(dtype) > SMEM_BUDGET:
+            continue
+        pm, pn, pk = (-M % c.bm), (-N % c.bn), (-K % c.bk)
+        waste = ((M + pm) * (N + pn) * (K + pk)) / max(M * N * K, 1) - 1.0
+        # fewer grid steps (bigger tiles) good; padding waste bad
+        grid = ((M + pm) // c.bm) * ((N + pn) // c.bn) * ((K + pk) // c.bk)
+        score = (waste * 4.0, grid, -c.bm * c.bn)
+        if best is None or score < best_score:
+            best, best_score = c, score
+    return best
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: f32 products and sums,
+    result in the input type."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    lib = build.load("matmul")
+    fn = lib.pm2lat_matmul
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
+                  config: MatmulConfig) -> torch.Tensor:
+    """a (M,K) @ b (K,N) -> (M,N) in a's type, f32 accumulation.  Any M, N,
+    K: the kernel masks ragged edges.  CUDA tensors launch the hand-written
+    kernel (and count the launch); CPU tensors take the plain version."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul_kernel: bad shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in DTYPES:
+        raise TypeError(f"matmul_kernel: dtypes {a.dtype}, {b.dtype}; both "
+                        f"must be one of {list(DTYPES)}")
+    if config not in CONFIGS:
+        raise ValueError(f"matmul_kernel: {config} is not in CONFIGS")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_plain(a, b)
+    if not (a.is_cuda and a.device == b.device):
+        raise ValueError(f"matmul_kernel: tensors on {a.device} and {b.device}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise RuntimeError("matmul_kernel has no backward kernel")
+    a, b = a.contiguous(), b.contiguous()
+    M, K = a.shape
+    N = b.shape[1]
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    lib, fn = _entry()
+    err = fn(config.bm, config.bk, config.bn, DTYPES[a.dtype], a.data_ptr(),
+             b.data_ptr(), c.data_ptr(), M, N, K,
+             torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(err, lib, "matmul")
+    matmul_kernel.launches += 1
+    return c
+
+
+matmul_kernel.launches = 0
