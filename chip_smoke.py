@@ -129,6 +129,9 @@ def phase_build():
                 smem = re.search(r"(\d+) bytes smem", line)
                 fns[cur]["static_smem"] = int(smem.group(1)) if smem else 0
         summary[name] = fns
+        if not fns or any("regs" not in f for f in fns.values()):
+            raise AssertionError(f"no ptxas report for every kernel of "
+                                 f"{name}: {fns}")
     for name in build.SOURCES:
         build.load(name)
     dynamic_smem = {c.name: {"float32": c.smem_bytes(torch.float32),

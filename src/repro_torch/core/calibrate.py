@@ -15,6 +15,11 @@ candidate, core/oracle.py), per dtype:
   - attention|fa_<cfg>              each hand-written flash config
   - memory model                    (utility ops, linear regression)
 
+``fa_model`` is not a kernel of its own: the entry point runs the hand
+flash kernel at the config ``select_config`` picks (``fa_128x128`` or
+``fa_64x64``), so it is a second profile of that kernel, at the reference's
+b*h of 8 (``fa_jnp``'s geometry) where the ``fa_*`` tables use 4.
+
 "float32" tables are true f32: TF32 is switched off for the whole pass.
 The hand-kernel tables are profiled only on the card — on the CPU the
 wrappers run the kernels' plain versions, which are not the kernels.
@@ -187,9 +192,8 @@ def calibrate_hand_attention(store: TableStore, configs=fkern.CONFIGS, *,
 
 
 def calibrate_memory_model(store: TableStore, *, device="cuda",
-                           max_feat: int = 16384, verbose=False):
-    samples = mm.collect_utility_samples(
-        mm.utility_workloads(max_feat, device=device), device=device)
+                           verbose=False):
+    samples = mm.collect_utility_samples(device=device)
     model = mm.fit_memory_model(samples)
     store.memory_model = model.to_json()
     if verbose:
@@ -199,12 +203,10 @@ def calibrate_memory_model(store: TableStore, *, device="cuda",
 
 
 def calibrate_device(path: Optional[str] = None, *, device="cuda",
-                     dtypes=("float32", "bfloat16"), grids=REF_GRIDS,
-                     bmm_grids=BMM_REF_GRIDS, k_anchors=DEFAULT_K_ANCHORS,
-                     bmm_k_anchors=BMM_K_ANCHORS, s_anchors=ATTN_S_ANCHORS, max_feat: int = 16384,
+                     dtypes=("float32", "bfloat16"),
                      verbose: bool = True) -> TableStore:
     """Full calibration pass on ``device``; the hand-kernel tables only on
-    a CUDA device.  The keyword sizes exist so tests can run it small."""
+    a CUDA device."""
     dev = resolve(device)
     t0 = time.time()
     store = TableStore()
@@ -216,12 +218,9 @@ def calibrate_device(path: Optional[str] = None, *, device="cuda",
         for dt in dtypes:
             if verbose:
                 print(f"[calibrate] matmul/bmm/attention dtype={dt}")
-            calibrate_matmul(store, dtype=dt, device=dev, grids=grids,
-                             k_anchors=k_anchors, verbose=verbose)
-            calibrate_bmm(store, dtype=dt, device=dev, grids=bmm_grids,
-                          k_anchors=bmm_k_anchors, verbose=verbose)
-            calibrate_attention(store, dtype=dt, device=dev,
-                                s_anchors=s_anchors, verbose=verbose)
+            calibrate_matmul(store, dtype=dt, device=dev, verbose=verbose)
+            calibrate_bmm(store, dtype=dt, device=dev, verbose=verbose)
+            calibrate_attention(store, dtype=dt, device=dev, verbose=verbose)
             if dev.type == "cuda":
                 calibrate_hand_matmul(store, dtype=dt, device=dev,
                                       verbose=verbose)
@@ -229,8 +228,7 @@ def calibrate_device(path: Optional[str] = None, *, device="cuda",
                                          verbose=verbose)
         if verbose:
             print("[calibrate] memory model")
-        calibrate_memory_model(store, device=dev, max_feat=max_feat,
-                               verbose=verbose)
+        calibrate_memory_model(store, device=dev, verbose=verbose)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32

@@ -41,14 +41,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output kept beside the library it built."""
+    return library_path(name).with_suffix(".log")
+
+
 def build_all() -> Dict[str, str]:
     """Compile every kernel library that is not built yet, all in parallel.
-    Returns ``{name: nvcc output}`` (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) for the libraries built by this call;
-    raises with the compiler's output if any build fails."""
-    todo = [n for n in SOURCES if not library_path(n).exists()]
-    if not todo:
-        return {}
+    Returns ``{name: nvcc output}`` for every source (``-Xptxas -v``:
+    registers, shared memory and spills per kernel); a library built
+    earlier gives the output kept beside it.  Raises with the compiler's
+    output if any build fails."""
+    todo = [n for n in SOURCES
+            if not (library_path(n).exists() and log_path(n).exists())]
+    if todo:
+        _compile(todo)
+    return {n: log_path(n).read_text() for n in SOURCES}
+
+
+def _compile(todo):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
     procs = {}
@@ -66,11 +77,11 @@ def build_all() -> Dict[str, str]:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
+            log_path(name).write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
-    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,13 +1,9 @@
-"""Plain PyTorch oracles for the hand-written kernels (the allclose
-targets): straightforward formulas, independent of the kernels' tiling."""
+"""Plain PyTorch oracle for the flash-attention kernel (the allclose
+target): the dense formula, independent of the kernel's tiling.  The
+matmul's plain version is ``kernels.matmul.matmul_plain``."""
 from __future__ import annotations
 
 import torch
-
-
-def matmul_ref(a, b, out_dtype=None):
-    out_dtype = out_dtype or a.dtype
-    return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
 def attention_ref(q, k, v, *, causal=True, window=None, scale=None):

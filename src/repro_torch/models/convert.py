@@ -32,7 +32,7 @@ def _flatten(tree, prefix=""):
 
 
 def from_jax_params(params_np: Dict, cfg: C.ModelConfig, *,
-                    device="cpu") -> Transformer:
+                    device="cuda") -> Transformer:
     dev = resolve(device)
     model = Transformer(cfg, device=dev)
     period = len(cfg.block_pattern)

@@ -62,9 +62,13 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """tokens (B, S) -> logits (B, S, padded_vocab) in the compute dtype."""
+    """tokens (B, S) -> logits (B, S, padded_vocab) in the compute dtype.
 
-    def __init__(self, cfg: C.ModelConfig, *, device=None):
+    Built through ``models.registry.build`` (seeded weights) or
+    ``models.convert.from_jax_params``; both resolve ``device`` first, so it
+    has no default here."""
+
+    def __init__(self, cfg: C.ModelConfig, *, device: torch.device):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg

@@ -25,7 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.models import attention as jA  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 8e-2, 5e-2)}
@@ -75,7 +75,7 @@ def test_matmul_plain_matches_pallas(cfg, dtype):
 @given(st.integers(1, 5), st.integers(1, 5), st.integers(1, 6))
 def test_matmul_ops_ragged_shapes(mi, ni, ki):
     """Ragged shapes: the port masks in the kernel, the JAX package pads in
-    the wrapper; both equal the oracle."""
+    the wrapper; both equal the JAX package's dense oracle."""
     M, N, K = 37 * mi, 23 * ni, 19 * ki
     rng = np.random.default_rng(mi * 100 + ni * 10 + ki)
     a = rng.standard_normal((M, K)).astype(np.float32)
@@ -85,8 +85,8 @@ def test_matmul_ops_ragged_shapes(mi, ni, ki):
     pallas = jops.matmul(jnp.asarray(a), jnp.asarray(b),
                          jmk.MatmulConfig(128, 128, 128), interpret=True)
     np.testing.assert_allclose(port, _np(pallas), atol=1e-3)
-    np.testing.assert_allclose(port, ref.matmul_ref(_t(a), _t(b)).numpy(),
-                               atol=1e-3)
+    np.testing.assert_allclose(
+        port, _np(jref.matmul_ref(jnp.asarray(a), jnp.asarray(b))), atol=1e-3)
 
 
 @settings(max_examples=8, deadline=None)
@@ -233,6 +233,22 @@ def test_flash_select_config_feasible_and_deterministic():
         assert c.smem_bytes(hd) <= fk.SMEM_BUDGET
     assert fk.select_config(512, 512, 64) == fk.FlashConfig(128, 128)
     assert {c.name for c in fk.CONFIGS} >= {"fa_128x128", "fa_64x64"}
+
+
+def test_build_returns_the_kept_compiler_output_when_cached(tmp_path,
+                                                           monkeypatch):
+    """A second build in the same checkout compiles nothing and still
+    returns each source's ptxas report, kept beside its library."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc", lambda: pytest.fail("compiled"))
+    for name in build.SOURCES:
+        build.library_path(name).write_bytes(b"")
+        build.log_path(name).write_text(f"ptxas info : Used 40 registers "
+                                         f"({name})")
+    logs = build.build_all()
+    assert sorted(logs) == sorted(build.SOURCES)
+    for name, log in logs.items():
+        assert "Used 40 registers" in log and name in log
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take():

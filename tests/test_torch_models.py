@@ -121,6 +121,8 @@ def test_cuda_without_a_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tmr.build(tcr.reduced("qwen2-0.5b"), device="cuda")
+    with pytest.raises(RuntimeError):     # the card is the default
+        convert.from_jax_params({}, tcr.reduced("qwen2-0.5b"))
 
 
 def test_attention_block_matches_jax():

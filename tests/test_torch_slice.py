@@ -1,8 +1,8 @@
-"""The port's whole slice on the CPU at a tiny budget: calibrate into a
-temporary directory, predict qwen3-mini, measure its forward pass, and hold
-the predictor's rows against the JAX package's ``PM2Lat`` on the same store
-and the same features (bit-identical).  The H100 run of the same path is
-``chip_smoke.py``."""
+"""The port's whole slice on the CPU at a tiny budget: calibrate (each
+kernel family at tiny grids) into a temporary directory, predict
+qwen3-mini, measure its forward pass, and hold the predictor's rows against
+the JAX package's ``PM2Lat`` on the same store and the same features
+(bit-identical).  The H100 run of the same path is ``chip_smoke.py``."""
 import dataclasses
 import os
 from pathlib import Path
@@ -19,6 +19,7 @@ from repro.core import table as jtab  # noqa: E402
 from repro.core.predictor import PM2Lat as JPM2Lat  # noqa: E402
 from repro_torch.configs import registry as tcr  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
+from repro_torch.core import memory_model as mm  # noqa: E402
 from repro_torch.core import opgraph as tog  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core.predictor import PM2Lat  # noqa: E402
@@ -27,11 +28,23 @@ from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.models import registry as tmr  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-TINY = dict(dtypes=("float32",), grids=((64, 64), (128, 256)),
-            bmm_grids=((2, 32, 32),), k_anchors=(32, 64, 128),
-            bmm_k_anchors=(32, 64), s_anchors=(64, 128), max_feat=256,
-            verbose=False)
 BATCH, SEQ = 1, 64
+
+
+def _tiny_store(path: str) -> TableStore:
+    """The calibration pass of ``calibrate_device`` on the CPU, family by
+    family at tiny grids, anchors and utility shapes."""
+    store = TableStore()
+    cal.calibrate_matmul(store, device="cpu", grids=((64, 64), (128, 256)),
+                         k_anchors=(32, 64, 128))
+    cal.calibrate_bmm(store, device="cpu", grids=((2, 32, 32),),
+                      k_anchors=(32, 64))
+    cal.calibrate_attention(store, device="cpu", s_anchors=(64, 128))
+    store.memory_model = mm.fit_memory_model(mm.collect_utility_samples(
+        mm.utility_workloads(256, device="cpu"), device="cpu")).to_json()
+    store.meta = {"device": cal.device_name("cpu"), "seconds": 0.0}
+    store.save(path)
+    return store
 
 
 def _tree_state(root: Path):
@@ -45,7 +58,7 @@ def slice_run(tmp_path_factory):
     watched = [ROOT / "artifacts", ROOT / "build"]
     before = [_tree_state(p) for p in watched]
     path = str(tmp / "store.json")
-    store = cal.calibrate_device(path, device="cpu", **TINY)
+    store = _tiny_store(path)
     cfg = dataclasses.replace(tcr.get_any("qwen3-mini"),
                               compute_dtype="float32")
     pm = PM2Lat(TableStore.load(path), cal.device_name("cpu"))
@@ -126,7 +139,8 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
-        cal.calibrate_device(str(tmp_path / "x.json"), device="cuda", **TINY)
+        cal.calibrate_device(str(tmp_path / "x.json"), device="cuda",
+                             verbose=False)
     with pytest.raises(RuntimeError):
         profiler.measure(lambda: None, device="cuda")
     with pytest.raises(RuntimeError):
