@@ -48,13 +48,20 @@ MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
 TABLE6_SAMPLES = 6
 
+MM_SHAPE = (768, 640, 1408)   # (M, N, K) at which the matmul configs are timed
+
 # Tolerances of the kernels against their plain versions.  Matmul: the JAX
 # package's kernel tests (f32 atol 1e-4*sqrt(K), rtol 1e-4; bf16 atol
 # 8e-2*sqrt(K), rtol 5e-2).  Flash f32: the JAX kernel tests' atol 2e-5.
-# Flash bf16: both sides compute in f32 from the same bf16 inputs and round
-# once to bf16, so they differ by at most one bf16 ulp (2^-7 relative).
+# Flash bf16, per element: the kernel rounds P to bf16 (unit roundoff
+# 2^-8) as the A operand of P V, so its sum sum_j p_j v_j / l may move by
+# up to 2^-8 sum_j p_j |v_j| / l, which is flash_attention_plain(q, k, |v|);
+# that is the atol.  Both outputs are then rounded to bf16 once: the rtol
+# 2^-8.  The rest (S scaled after the product instead of q before it, the
+# order of f32 sums, exp2f) is f32 rounding, orders of magnitude below.
 MM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-2, 5e-2)}   # (atol/sqrt(K), rtol)
-FA_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-3, 1e-2)}    # (atol, rtol)
+FA_TOL = {"float32": (2e-5, 0.0),                              # (atol, rtol)
+          "bfloat16": ("2^-8 * flash_attention_plain(q, k, |v|)", 2 ** -8)}
 
 
 def emit(phase: str, **fields):
@@ -91,13 +98,17 @@ def phase_device():
     return smi
 
 
+WGMMA_KERNELS = ("mm_wgmma_kernel", "fa_wgmma_kernel")   # the bf16 instances
+
+
 def kernel_label(mangled: str) -> str:
-    """``fa_fwd_kernel<128,128,64,bf16>`` from a mangled template name."""
-    base = re.search(r"(mm_kernel|fa_fwd_kernel)", mangled)
+    """``fa_wgmma_kernel<128,128,64,bf16>`` from a mangled template name."""
+    base = re.search(r"(mm_wgmma_kernel|fa_wgmma_kernel|mm_kernel|"
+                     r"fa_fwd_kernel)", mangled)
     ints = re.findall(r"Li(\d+)E", mangled)
-    kind = "bf16" if "bfloat16" in mangled else "f32"
     if not base:
         return mangled[:60]
+    kind = "bf16" if base.group(1) in WGMMA_KERNELS else "f32"
     return f"{base.group(1)}<{','.join(ints)},{kind}>"
 
 
@@ -132,19 +143,64 @@ def phase_build():
         if not fns or any("regs" not in f for f in fns.values()):
             raise AssertionError(f"no ptxas report for every kernel of "
                                  f"{name}: {fns}")
+    build_s = time.time() - t0
     for name in build.SOURCES:
         build.load(name)
-    dynamic_smem = {c.name: {"float32": c.smem_bytes(torch.float32),
-                             "bfloat16": c.smem_bytes(torch.bfloat16)}
-                    for c in mk.CONFIGS}
-    dynamic_smem.update({c.name: {f"hd{hd}": c.smem_bytes(hd)
-                                  for hd in fk.HEAD_DIMS} for c in fk.CONFIGS})
-    emit("build", seconds=time.time() - t0, ptxas=summary,
-         dynamic_smem_bytes=dynamic_smem)
+    # every bf16 instance runs on the tensor cores without spilling
+    hgmma = {}
+    for name in build.SOURCES:
+        for mangled, code in build.sass(name).items():
+            label = kernel_label(mangled)
+            if label.startswith(WGMMA_KERNELS):
+                hgmma[label] = code.count("HGMMA")
+    want = len(mk.CONFIGS) + len(fk.CONFIGS) * len(fk.HEAD_DIMS)
+    if len(hgmma) != want or not all(hgmma.values()):
+        raise AssertionError(f"HGMMA missing from the SASS of a bf16 "
+                             f"instance ({want} expected): {hgmma}")
+    for fns in summary.values():
+        for label, f in fns.items():
+            if label.startswith(WGMMA_KERNELS) and (
+                    f.get("spill_stores", 0) or f.get("spill_loads", 0)):
+                raise AssertionError(f"{label} spills: {f}")
+    serialised = [line for log in logs.values() for line in log.splitlines()
+                  if "Performance Loss" in line]
+    if serialised:
+        raise AssertionError(f"ptxas serialised wgmma: {serialised}")
+    # the shared memory the library launches with is what Python budgets
+    dynamic_smem, bad = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        for c in mk.CONFIGS:
+            py, lib = c.smem_bytes(dt), mk.library_smem(c, dt)
+            dynamic_smem[f"{c.name}/{dt}"] = lib
+            bad += [(c.name, str(dt), py, lib)] if py != lib else []
+        for c in fk.CONFIGS:
+            for hd in fk.HEAD_DIMS:
+                py, lib = c.smem_bytes(hd, dt), fk.library_smem(c, hd, dt)
+                dynamic_smem[f"{c.name}/hd{hd}/{dt}"] = lib
+                bad += [(c.name, hd, str(dt), py, lib)] if py != lib else []
+    if bad:
+        raise AssertionError(f"dynamic shared memory differs from Python's "
+                             f"smem_bytes: {bad}")
+    # ptxas says "Potential Performance Loss" where it serialises wgmma
+    warnings = sorted({line.strip() for log in logs.values()
+                       for line in log.splitlines()
+                       if "warning" in line.lower() or "Performance Loss" in line})
+    emit("build", seconds=build_s, ptxas=summary, hgmma_count=hgmma,
+         dynamic_smem_bytes=dynamic_smem, compiler_warnings=warnings)
+
+
+def offset(shape, dt, gen, by=1):
+    """A contiguous tensor of ``shape`` whose base address is ``by``
+    elements past an allocation's (2 bytes off alignment in bf16)."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + by, generator=gen, device="cuda").to(dt)
+    return flat[by:].view(*shape)
 
 
 def check_matmul(dtypes):
-    """Every config, both types, aligned and ragged shapes."""
+    """Every config, both types: aligned shapes (TMA), ragged edges with
+    16-byte row strides (TMA, zero-filled boxes), odd K or N, tiny shapes
+    and operands 2 bytes off alignment (the second load path)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     rows = []
@@ -152,62 +208,106 @@ def check_matmul(dtypes):
         for dname in dtypes:
             dt = getattr(torch, dname)
             atol_k, rtol = MM_TOL[dname]
-            for M, K, N in ((2 * cfg.bm, 3 * cfg.bk, 2 * cfg.bn),
-                            (2 * cfg.bm + 37, 2 * cfg.bk + 19, cfg.bn + 23),
-                            (5, 7, 3)):
-                a = torch.randn(M, K, generator=gen, device="cuda").to(dt)
-                b = torch.randn(K, N, generator=gen, device="cuda").to(dt)
+            cases = [((2 * cfg.bm, 3 * cfg.bk, 2 * cfg.bn), None),
+                     ((2 * cfg.bm + 37, 2 * cfg.bk + 24, cfg.bn + 40), None),
+                     ((2 * cfg.bm + 37, 2 * cfg.bk + 19, cfg.bn + 23), None),
+                     ((5, 7, 3), None),
+                     ((2 * cfg.bm, 2 * cfg.bk, cfg.bn), "a"),   # a[:, 1:]
+                     ((cfg.bm + 3, cfg.bk, 2 * cfg.bn), "b")]   # b 2 bytes off
+            for (M, K, N), off in cases:
+                if off == "a":
+                    a = torch.randn(M, K + 1, generator=gen,
+                                    device="cuda").to(dt)[:, 1:]
+                else:
+                    a = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+                b = (offset((K, N), dt, gen) if off == "b" else
+                     torch.randn(K, N, generator=gen, device="cuda").to(dt))
+                path = mk.load_path(a, b)
                 got = mk.matmul_kernel(a, b, cfg)
                 torch.cuda.synchronize()
                 err, ok = close(got, mk.matmul_plain(a, b),
                                 atol_k * K ** 0.5, rtol)
-                rows.append({"cfg": cfg.name, "dtype": dname,
-                             "shape": [M, K, N], "max_abs_err": err, "ok": ok})
+                rows.append({"cfg": cfg.name, "dtype": dname, "path": path,
+                             "shape": [M, K, N], "offset": off,
+                             "max_abs_err": err, "ok": ok})
                 worst = max(worst, err)
                 if not ok:
-                    raise AssertionError(f"matmul {cfg.name} {dname} "
+                    raise AssertionError(f"matmul {cfg.name} {dname} {path} "
                                          f"{(M, K, N)}: max err {err}")
     return worst, rows
 
 
+def flash_tol(q, k, v, cfg, dname, kw):
+    """(atol, rtol) of FA_TOL for these inputs; bf16's atol is per element."""
+    if dname == "float32":
+        return FA_TOL[dname]
+    return (2 ** -8 * fk.flash_attention_plain(q, k, v.abs(), cfg, **kw).float(),
+            FA_TOL[dname][1])
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
-    and unequal lengths (bottom-right causal alignment), both configs."""
+    and unequal lengths (bottom-right causal alignment), both configs; in
+    bf16 every (config, hd) goes through TMA, and strided views (TMA) and
+    tensors 2 bytes off alignment or with an odd row stride (the second
+    load path) are added."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window)
-        (2, 256, 256, 3, 3, 64, True, None),
-        (2, 256, 256, 3, 3, 64, False, None),
-        (1, 256, 256, 2, 2, 32, True, 64),
-        (1, 256, 256, 4, 4, 16, True, None),
-        (1, 128, 128, 2, 2, 128, True, None),
-        (2, 512, 512, 14, 2, 64, True, None),     # qwen2-0.5b's geometry
-        (1, 200, 200, 4, 2, 32, True, None),      # ragged S
-        (1, 100, 300, 4, 1, 64, True, None),      # Sq < Skv, ragged
-        (1, 77, 77, 2, 2, 64, False, None),
+    cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
+        (2, 256, 256, 3, 3, 64, True, None, None),
+        (2, 256, 256, 3, 3, 64, False, None, None),
+        (1, 256, 256, 2, 2, 32, True, 64, None),
+        (1, 256, 256, 4, 4, 16, True, None, None),
+        (1, 128, 128, 2, 2, 128, True, None, None),
+        (2, 512, 512, 14, 2, 64, True, None, None),     # qwen2-0.5b's geometry
+        (1, 200, 200, 4, 2, 32, True, None, None),      # ragged S
+        (1, 100, 300, 4, 1, 64, True, None, None),      # Sq < Skv, ragged
+        (1, 77, 77, 2, 2, 64, False, None, None),
+        (1, 96, 160, 2, 2, 16, False, None, None),
+        (2, 130, 130, 4, 2, 128, True, 40, None),
+        (2, 256, 256, 4, 2, 64, True, None, "fused"),    # q, k, v slices of qkv
+        (1, 150, 201, 4, 2, 64, True, None, "offset"),   # 2 bytes off
+        (1, 129, 129, 2, 1, 128, False, None, "offset"),
+        (1, 100, 100, 2, 2, 32, True, None, "odd_row"),  # odd sequence stride
     ]
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
         for dname in dtypes:
             dt = getattr(torch, dname)
-            atol, rtol = FA_TOL[dname]
-            for B, Sq, Skv, H, Hkv, hd, causal, window in cases:
-                q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
-                k = torch.randn(B, Skv, Hkv, hd, generator=gen, device="cuda").to(dt)
-                v = torch.randn(B, Skv, Hkv, hd, generator=gen, device="cuda").to(dt)
+            for B, Sq, Skv, H, Hkv, hd, causal, window, layout in cases:
+                if layout == "fused":
+                    qkv = torch.randn(B, Sq, H + 2 * Hkv, hd, generator=gen,
+                                      device="cuda").to(dt)
+                    q, k, v = qkv.split([H, Hkv, Hkv], dim=2)
+                elif layout == "offset":
+                    q = offset((B, Sq, H, hd), dt, gen)
+                    k = offset((B, Skv, Hkv, hd), dt, gen)
+                    v = offset((B, Skv, Hkv, hd), dt, gen, by=3)
+                elif layout == "odd_row":
+                    rand = lambda S, n: torch.randn(
+                        B, S, n * hd + 1, generator=gen,
+                        device="cuda").to(dt)[..., :n * hd].unflatten(2, (n, hd))
+                    q, k, v = rand(Sq, H), rand(Skv, Hkv), rand(Skv, Hkv)
+                else:
+                    q = torch.randn(B, Sq, H, hd, generator=gen, device="cuda").to(dt)
+                    k = torch.randn(B, Skv, Hkv, hd, generator=gen, device="cuda").to(dt)
+                    v = torch.randn(B, Skv, Hkv, hd, generator=gen, device="cuda").to(dt)
                 kw = dict(causal=causal, window=window, q_offset=Skv - Sq)
+                path = fk.load_path(q, k, v)
                 got = fk.flash_attention_kernel(q, k, v, cfg, **kw)
                 torch.cuda.synchronize()
                 want = fk.flash_attention_plain(q, k, v, cfg, **kw)
-                err, ok = close(got, want, atol, rtol)
-                rows.append({"cfg": cfg.name, "dtype": dname,
-                             "case": [B, Sq, Skv, H, Hkv, hd, causal, window],
+                err, ok = close(got, want, *flash_tol(q, k, v, cfg, dname, kw))
+                rows.append({"cfg": cfg.name, "dtype": dname, "path": path,
+                             "case": [B, Sq, Skv, H, Hkv, hd, causal, window,
+                                      layout],
                              "max_abs_err": err, "ok": ok})
                 worst = max(worst, err)
                 if not ok:
                     raise AssertionError(
-                        f"flash {cfg.name} {dname} {(B, Sq, Skv, H, Hkv, hd)}"
-                        f" causal={causal} window={window}: max err {err}")
+                        f"flash {cfg.name} {dname} {path} "
+                        f"{(B, Sq, Skv, H, Hkv, hd)} causal={causal} "
+                        f"window={window} layout={layout}: max err {err}")
     return worst, rows
 
 
@@ -323,6 +423,7 @@ def phase_model(store):
             finite = bool(torch.isfinite(logits).all())
             shape = list(logits.shape)
             del logits
+            trace = forward_trace(model, tokens) if dname == "bfloat16" else None
             measured = profiler.measure(model, tokens)
         total, rows = pm.predict_model(cfg, BATCH, SEQ, dtype=dname)
         top = sorted(rows, key=lambda r: -r.seconds)[:5]
@@ -335,6 +436,8 @@ def phase_model(store):
                "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3]
                                   for r in top],
                "peak_mem_gb": peak / 1e9}
+        if trace:
+            res["device_trace"] = trace
         emit("model", **res)
         if not finite or shape != [BATCH, SEQ, model.padded_vocab]:
             raise AssertionError(f"{MODEL} {dname}: logits {shape}, finite="
@@ -348,73 +451,198 @@ def phase_model(store):
     return results
 
 
-def kernel_lines(table6, launches):
-    """Each hand kernel at the main path's shape: its time, its plain
-    version's, one PyTorch call's (a yardstick only), and the card's bound."""
+def device_ms(fn, *args, n=20):
+    """Device time of one call, from ``torch.profiler``'s device events
+    over ``n`` calls; None when the profiler shows no device time."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile_cuda() as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    ms = sum(t for _, t in device_rows(prof).values())
+    return ms / n if ms > 0 else None
+
+
+def profile_cuda():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def device_rows(prof):
+    """``{name: [calls, device ms]}`` of a trace's device-side events
+    (kernels and copies), summed from the events themselves.
+    ``key_averages()`` also gives each CPU op the device time of the
+    kernels it launched, so summing its rows counts that time twice."""
+    from torch.autograd import DeviceType
+    rows = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = rows.setdefault(e.name, [0, 0.0])
+            row[0] += 1
+            row[1] += e.time_range.elapsed_us() / 1e3
+    return rows
+
+
+def forward_trace(model, tokens):
+    """Where one forward's time goes.  Without the profiler: the host's
+    time to enqueue it and the device's span from its first to its last
+    kernel (CUDA events); where the two are close, the host sets the pace.
+    Under ``torch.profiler``: the device's busy time, its idle share of
+    that span, and the 10 kernels that take the most time."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    model(tokens)
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    with profile_cuda() as prof:
+        model(tokens)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    busy = sum(t for _, t in rows.values())
+    top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"host_enqueue_ms": host_ms, "span_ms": span,
+            "device_busy_ms": busy,
+            "idle_share": (1 - busy / span) if busy else None,
+            "kernel_launches": sum(c for c, _ in rows.values()),
+            "top10": [[name[:90], c, t] for name, (c, t) in top]}
+
+
+def kernel_lines(launches, mm_pick):
+    """Each hand kernel in bf16 at the main path's shapes: its time (and
+    each config's), its own device time, its plain version's time, one
+    PyTorch call's (a yardstick only), and the card's bound.  The matmul is
+    timed at MM_SHAPE in every config, ``mm_pick`` marked; the flash kernel
+    at qwen2-0.5b's prefill attention in both configs.  Under ``float32``,
+    the same numbers for the float32 instance (FFMA) at the same shape, in
+    ``mm_128x128x128`` (matmul) or the config ``select_config`` picks
+    (flash)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    bf, f32 = torch.bfloat16, torch.float32
     lines = []
 
-    def bound(nbytes, flops, dname):
+    def bound(nbytes, flops, dname="bfloat16"):
         t_bytes = nbytes / H100_SXM.hbm_bw
         t_ops = flops / H100_SXM.peak(dname)
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
 
-    # matmul: the largest Table VI shape in bf16, at the oracle's pick
-    big = max((r for r in table6["mm"] if r["dtype"] == "bfloat16"),
-              key=lambda r: np.prod(r["shape"]))
-    m, n, k = big["shape"]
-    cfg = next(c for c in mk.CONFIGS if c.name == big["pick"])
-    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-    b = torch.randn(k, n, generator=gen, device="cuda").to(torch.bfloat16)
-    err, ok = close(mk.matmul_kernel(a, b, cfg), mk.matmul_plain(a, b),
-                    MM_TOL["bfloat16"][0] * k ** 0.5, MM_TOL["bfloat16"][1])
-    bms, by = bound(2 * (m * k + k * n + m * n), 2.0 * m * n * k, "bfloat16")
+    def timed(run, *args):
+        dev = device_ms(run, *args)
+        return {"ms": profiler.measure(run, *args) * 1e3,
+                "device_ms": "not measured" if dev is None else dev}
+
+    def float32(config, run, plain, tol, args, lib, lib_args, nbytes, flops):
+        """The float32 instance, timed as the bf16 line is; ``nbytes`` and
+        ``flops`` are the bf16 line's (the bytes double in float32)."""
+        err, ok = close(run(*args), plain(*args), *tol)
+        bms, by = bound(2 * nbytes, flops, "float32")
+        libt = timed(lib, *lib_args)
+        return {"config": config, "max_abs_err": err, "ok": ok,
+                **timed(run, *args),
+                "plain_ms": profiler.measure(plain, *args) * 1e3,
+                "bound_ms": bms, "bound_by": by, "library_ms": libt["ms"],
+                "library_device_ms": libt["device_ms"]}
+
+    m, n, k = MM_SHAPE
+    a = torch.randn(m, k, generator=gen, device="cuda").to(bf)
+    b = torch.randn(k, n, generator=gen, device="cuda").to(bf)
+    want = mk.matmul_plain(a, b)
+    configs = []
+    for cfg in mk.CONFIGS:
+        run = lambda a, b, cfg=cfg: mk.matmul_kernel(a, b, cfg)
+        err, ok = close(run(a, b), want, MM_TOL["bfloat16"][0] * k ** 0.5,
+                        MM_TOL["bfloat16"][1])
+        configs.append({"config": cfg.name, "pick": cfg.name == mm_pick,
+                        "path": mk.load_path(a, b), "max_abs_err": err,
+                        "ok": ok, **timed(run, a, b)})
+    head = next(c for c in configs if c["config"] == "mm_128x128x128")
+    nbytes, flops = 2 * (m * k + k * n + m * n), 2.0 * m * n * k
+    bms, by = bound(nbytes, flops)
+    lib = timed(torch.matmul, a, b)
+    cfg = next(c for c in mk.CONFIGS if c.name == "mm_128x128x128")
+    a32, b32 = a.float(), b.float()
     lines.append({
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:89",
-        "launches": launches["matmul"], "max_abs_err": err, "ok": ok,
-        "config": cfg.name, "shape": [m, n, k], "dtype": "bfloat16",
-        "ms": profiler.measure(lambda a, b: mk.matmul_kernel(a, b, cfg),
-                               a, b) * 1e3,
+        "launches": launches["matmul"],
+        "max_abs_err": max(c["max_abs_err"] for c in configs),
+        "ok": all(c["ok"] for c in configs),
+        "config": head["config"], "shape": [m, n, k], "dtype": "bfloat16",
+        "ms": head["ms"], "device_ms": head["device_ms"],
         "plain_ms": profiler.measure(mk.matmul_plain, a, b) * 1e3,
         "bound_ms": bms, "bound_by": by,
-        "library_ms": profiler.measure(torch.matmul, a, b) * 1e3})
+        "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+        "configs": configs,
+        "float32": float32(
+            cfg.name, lambda a, b: mk.matmul_kernel(a, b, cfg),
+            mk.matmul_plain, (MM_TOL["float32"][0] * k ** 0.5,
+                              MM_TOL["float32"][1]),
+            (a32, b32), torch.matmul, (a32, b32), nbytes, flops)})
 
     # flash: qwen2-0.5b's prefill attention, bf16, as the model calls it
     c = cfg_registry.get(MODEL)
     B, S, H, Hkv, hd = BATCH, SEQ, c.n_heads, c.n_kv_heads, c.head_dim
-    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
-    kk = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
-    vv = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(torch.bfloat16)
-    fcfg = fk.select_config(S, S, hd)
-    run = lambda q, k, v: fk.flash_attention_kernel(q, k, v, fcfg, causal=True)
-    plain = lambda q, k, v: fk.flash_attention_plain(q, k, v, fcfg, causal=True)
-    err, ok = close(run(q, kk, vv), plain(q, kk, vv), *FA_TOL["bfloat16"])
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(bf)
+    kk = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(bf)
+    vv = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(bf)
+    pick = fk.select_config(S, S, hd, bf)
+    kw = dict(causal=True, q_offset=0)
+    configs = []
+    for fcfg in fk.CONFIGS:
+        run = lambda q, k, v, fcfg=fcfg: fk.flash_attention_kernel(
+            q, k, v, fcfg, causal=True)
+        err, ok = close(run(q, kk, vv),
+                        fk.flash_attention_plain(q, kk, vv, fcfg, **kw),
+                        *flash_tol(q, kk, vv, fcfg, "bfloat16", kw))
+        configs.append({"config": fcfg.name, "pick": fcfg == pick,
+                        "path": fk.load_path(q, kk, vv), "max_abs_err": err,
+                        "ok": ok, **timed(run, q, kk, vv)})
+    head = next(x for x in configs if x["pick"])
+    plain = lambda q, k, v: fk.flash_attention_plain(q, k, v, pick, causal=True)
     # the causal mask needs S(S+1)/2 of the S^2 score pairs
     flops = 4.0 * B * H * hd * S * (S + 1) / 2
     nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
-    bms, by = bound(nbytes, flops, "bfloat16")
-    qt = q.transpose(1, 2).contiguous()
-    kt = kk.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
-    vt = vv.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    bms, by = bound(nbytes, flops)
+    per_head = lambda x: x.repeat_interleave(H // x.shape[2], dim=2) \
+        .transpose(1, 2).contiguous()
     sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True)
+    lib = timed(sdpa, *map(per_head, (q, kk, vv)))
+    f32_args = tuple(x.float() for x in (q, kk, vv))
+    pick32 = fk.select_config(S, S, hd, f32)
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:87",
-        "launches": launches["flash_attention"], "max_abs_err": err, "ok": ok,
-        "config": fcfg.name, "shape": [B, S, H, Hkv, hd], "dtype": "bfloat16",
-        "ms": profiler.measure(run, q, kk, vv) * 1e3,
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(x["max_abs_err"] for x in configs),
+        "ok": all(x["ok"] for x in configs),
+        "config": head["config"], "shape": [B, S, H, Hkv, hd],
+        "dtype": "bfloat16", "ms": head["ms"], "device_ms": head["device_ms"],
         "plain_ms": profiler.measure(plain, q, kk, vv) * 1e3,
         "bound_ms": bms, "bound_by": by,
-        "library_ms": profiler.measure(sdpa, qt, kt, vt) * 1e3})
+        "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+        "configs": configs,
+        "float32": float32(
+            pick32.name, lambda q, k, v: fk.flash_attention_kernel(
+                q, k, v, pick32, causal=True),
+            lambda q, k, v: fk.flash_attention_plain(q, k, v, pick32,
+                                                     causal=True),
+            FA_TOL["float32"], f32_args, sdpa, tuple(map(per_head, f32_args)),
+            nbytes, flops)})
     for line in lines:
-        if not line["ok"]:
-            raise AssertionError(f"{line['name']} at the main-path shape: max "
-                                 f"err {line['max_abs_err']}")
+        if not (line["ok"] and line["float32"]["ok"]):
+            raise AssertionError(
+                f"{line['name']} at the main-path shape: max err "
+                f"{line['max_abs_err']} (bf16), "
+                f"{line['float32']['max_abs_err']} (float32)")
     return lines
 
 
@@ -434,6 +662,9 @@ def main() -> int:
     mm_err, mm_rows = check_matmul(("float32", "bfloat16"))
     fa_err, fa_rows = check_flash(("float32", "bfloat16"))
     record["kernel_checks"] = {"matmul": mm_rows, "flash_attention": fa_rows}
+    for kernel, rows in record["kernel_checks"].items():
+        for row in rows:
+            emit("check", kernel=kernel, **row)
     emit("kernels_vs_plain", matmul_checks=len(mm_rows),
          matmul_max_abs_err=mm_err, flash_checks=len(fa_rows),
          flash_max_abs_err=fa_err, all_ok=True,
@@ -453,7 +684,10 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
 
-    kernels = kernel_lines(table6, launches)
+    m, n, _ = MM_SHAPE
+    mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
+        "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
+    kernels = kernel_lines(launches, mm_pick)
     record.update(table6=table6, model=model, kernels=kernels,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,7 +38,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Keyed by the source, the headers beside it and the flags."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -82,6 +86,31 @@ def _compile(todo):
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
+
+
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump``, else the copy Triton's package carries
+    (found without importing Triton)."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(found):
+        spec = importlib.util.find_spec("triton")
+        if spec and spec.origin:
+            found = str(Path(spec.origin).parent / "backends" / "nvidia"
+                        / "bin" / "cuobjdump")
+    if not os.path.exists(found):
+        raise RuntimeError("cuobjdump not found: the CUDA toolkit or Triton "
+                           "is needed to read the kernels' SASS")
+    return found
+
+
+def sass(name: str) -> Dict[str, str]:
+    """``{mangled kernel name: its SASS}`` of the built library ``name``,
+    from ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump(), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", out, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,44 +6,71 @@
 // flash_attention_kernel (body _fa_kernel).  There, a sequential grid axis
 // walks the KV blocks and carries m, l and acc in VMEM scratch.  Here one
 // block owns one (batch*head, BQ query rows) tile for its whole life and a
-// loop inside it walks the KV tiles of BK rows; thread t owns query row t,
-// so m, l and the HD-wide f32 accumulator stay in its registers and never
-// touch device memory.  The semantics are the TPU kernel's: q scaled by
-// 1/sqrt(hd) in f32, causal mask qp >= kp with qp = q_offset + row, window
-// (qp - kp) < window, masking ADDS -1e30 (never -inf), m/l/acc in f32, l
-// clamped at 1e-30, every KV tile visited (no causal skip, so the work
-// matches the fa_* tables' flops convention).  Query head h reads KV head
-// h / (H / Hkv) in place of a materialised repeat.  Rows past Sq and keys
-// past Skv are masked in the kernel (keys by the same additive -1e30).
+// loop inside it walks the KV tiles of BK rows, so m, l and the f32
+// accumulator stay in registers and never touch device memory.  The
+// semantics are the TPU kernel's: causal mask qp >= kp with qp = q_offset +
+// row, window (qp - kp) < window, masking ADDS -1e30 (never -inf), m/l/acc
+// in f32, l clamped at 1e-30.  Query head h reads KV head h / (H / Hkv) in
+// place of a materialised repeat.  Rows past Sq and keys past Skv are
+// masked in the kernel (keys by the same additive -1e30).
 //
-// Shared memory per block: the KV tile [BK][HD] (K, then V in the same
-// buffer), the scaled Q tile [BQ][HD + 1] and the score tile [BQ][BK + 1],
-// all f32; the +1 paddings make each thread's private row conflict-free
-// while the K/V rows are read as broadcasts.
+// Every KV tile is visited, with no causal skip.  The fa_* and fa_model
+// tables are profiled causal and turned into throughput with the
+// full-square count 4 bh s^2 hd (core/calibrate.py), and the predictor
+// prices causal and non-causal attention (encoder and cross attention)
+// from them by that same count.  A skip would halve the causal tables'
+// times and underprice every non-causal op by about 2x; it needs
+// causal-keyed tables first.
 //
 // What bounds it on the H100: at qwen2-0.5b prefill (B=8, S=512, 14 query
 // and 2 KV heads, hd 64, bf16) the bytes (q, o, k, v once: 16.8 MB, 5.0 us
 // at 3.35 TB/s) outweigh the causal flops (3.8 GFLOP, 3.8 us at 989
-// TFLOP/s).  This first version computes with FFMA on the CUDA cores, one
-// query row per thread, so it is bound by the FFMA rate and by shared-memory
-// issue, far from either bound; tensor-core (wgmma) tiles, TMA and a causal
-// skip are later work.
+// TFLOP/s); the full square the kernel computes is 7.5 GFLOP, 7.6 us.
+//
+// bfloat16 (fa_wgmma_kernel): the tensor cores.  BQ / 64 warpgroups, each
+// owning 64 query rows; thread 0 also issues TMA: the Q tile once, then K
+// and V tiles through a two-stage ring, refilling a stage as soon as every
+// warpgroup is done with it (rank-4 tensor maps over (B, S, H, hd), so GQA reads the
+// KV head in place), each tile completing on its own mbarrier.  S = Q K^T
+// is wgmma.m64n<BK>k16 with both operands in shared memory (K stored
+// [BK, hd] is K-major).  The online softmax runs on the accumulator
+// fragments in registers: S is scaled by 1/sqrt(hd) after the product (the
+// TPU scales q in f32 first; a bf16 operand cannot carry that), masked,
+// row max comes from quad shuffles, the accumulator is rescaled by
+// exp(m_old - m_new), and each thread sums l over its own columns until
+// the epilogue.  P is rounded to bf16 in registers and is the A operand of
+// O += P V (wgmma from registers; V [BK, hd] is MN-major: the transpose
+// flag).  On the TPU, jnp.dot(p, v) at JAX's default precision also runs
+// its f32 operands through bf16 MXU passes.  The epilogue divides by l and
+// stores bf16.  Rows of 128 bytes or more (hd 64, 128) use the 128-byte
+// swizzle in 64-column boxes; hd 16 and 32 use the 32- and 64-byte
+// swizzles.  An operand whose base address or strides are no multiple of
+// 16 bytes cannot go through TMA: then the consumers copy each tile
+// themselves (hopper::load_tile_sync) into the same layout, one stage, and
+// feed the same wgmma.  The wrapper chooses the path
+// (flash_attention.py::load_path) and passes it in.
+//
+// float32 (fa_fwd_kernel): FFMA on the CUDA cores, one query row per
+// thread (the tables' "float32" is true f32, and the tensor cores have no
+// true-f32 mode).  Shared memory per block:
+// the KV tile [BK][HD] (K, then V in the same buffer), the scaled Q tile
+// [BQ][HD + 1] and the score tile [BQ][BK + 1], all f32; the +1 paddings
+// make each thread's private row conflict-free while the K/V rows are
+// read as broadcasts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int BQ, int BK, int HD>
 constexpr size_t smem_floats() {
@@ -169,55 +196,386 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int BQ, int BK, int HD, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int Hkv, int Sq, int Skv, int causal, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+template <int BQ, int BK, int HD>
+constexpr size_t ffma_smem() {
+  return sizeof(float) * smem_floats<BQ, BK, HD>();
+}
+
+template <int BQ, int BK, int HD>
+cudaError_t launch_ffma(const void* q, const void* k, const void* v, void* o, int B,
+                        int H, int Hkv, int Sq, int Skv, int causal, int window,
+                        int q_offset, float scale, cudaStream_t stream) {
   static_assert(HD % 4 == 0 && BQ % 4 == 0, "float4 rows need 16-byte alignment");
-  constexpr size_t smem = sizeof(float) * smem_floats<BQ, BK, HD>();
-  auto kern = fa_fwd_kernel<BQ, BK, HD, T>;
-  cudaError_t err = cudaFuncSetAttribute(
+  constexpr size_t smem = ffma_smem<BQ, BK, HD>();
+  auto kern = fa_fwd_kernel<BQ, BK, HD, float>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kern<<<grid, BQ, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Hkv, Sq, Skv, causal, window, q_offset, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
+      causal, window, q_offset, scale);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- bfloat16
+
+template <int BQ, int BK, int HD>
+struct FaWgmma {
+  static constexpr int NWG = BQ / 64;              // consumer warpgroups
+  static constexpr int NC = NWG * 128;             // consumer threads
+  // No producer warp: a 9th warp would make ptxas budget registers for
+  // three warpgroups (168 a thread) and spill at hd 128.  Thread 0 issues
+  // the TMA loads between its own products instead.
+  static constexpr int THREADS = NC;
+  static constexpr int CH = HD < 64 ? HD : 64;     // column chunk (elements)
+  static constexpr int SW = CH * 2;                // swizzle bytes
+  static constexpr int Q_BYTES = BQ * HD * 2;
+  static constexpr int KV_BYTES = BK * HD * 2;     // one K or V tile
+  static constexpr int ST = 2;                     // ring stages
+  // 1024 bytes of slack to align the tiles, 256 for the barriers.
+  static constexpr size_t SMEM = 1024 + (size_t)Q_BYTES + 2 * ST * KV_BYTES + 256;
+  static_assert(BQ % 64 == 0 && (BK == 64 || BK == 128), "bad tile");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "bad head dim");
+};
+
+template <int BQ, int BK, int HD>
+__global__ void __launch_bounds__(FaWgmma<BQ, BK, HD>::THREADS)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq, int Skv,
+                int causal, int window, int q_offset, float scale,
+                long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                long long v_sh, int tma) {
+  using S = FaWgmma<BQ, BK, HD>;
+  using namespace hopper;
+  constexpr float kNeg = -1e30f;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sq = smem;
+  auto sk = [&](int s) { return smem + S::Q_BYTES + s * 2 * S::KV_BYTES; };
+  auto sv = [&](int s) { return sk(s) + S::KV_BYTES; };
+  const uint32_t bars = smem_u32(smem + S::Q_BYTES + 2 * S::ST * S::KV_BYTES);
+  const uint32_t qfull = bars;
+  auto kfull = [&](int s) { return bars + 8 * (1 + s); };
+  auto vfull = [&](int s) { return bars + 8 * (1 + S::ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * S::ST + s); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.y * BQ;
+  const int NT = (Skv + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < S::ST; ++s) {
+      mbar_init(kfull(s), 1);
+      mbar_init(vfull(s), 1);
+      mbar_init(empty(s), S::NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Thread 0 issues TMA: Q once, then K and V tile j into stage j % ST.
+  auto issue_kv = [&](int j) {
+    const int s = j % S::ST;
+    mbar_expect_tx(kfull(s), S::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < HD / S::CH; ++c)
+      tma_load_4d(smem_u32(sk(s) + c * BK * S::CH * 2), &map_k, kfull(s),
+                  c * S::CH, hk, j * BK, b);
+    mbar_expect_tx(vfull(s), S::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < HD / S::CH; ++c)
+      tma_load_4d(smem_u32(sv(s) + c * BK * S::CH * 2), &map_v, vfull(s),
+                  c * S::CH, hk, j * BK, b);
+  };
+  if (tma && tid == 0) {
+    mbar_expect_tx(qfull, S::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < HD / S::CH; ++c)
+      tma_load_4d(smem_u32(sq + c * BQ * S::CH * 2), &map_q, qfull, c * S::CH,
+                  h, q0, b);
+    for (int j = 0; j < S::ST && j < NT; ++j) issue_kv(j);
+  }
+
+  const int wg = tid / 128, w = (tid % 128) / 32, l = tid % 32;
+  // This thread's two query rows (block-local) and their positions.
+  const int row0 = wg * 64 + 16 * w + l / 4;
+  const int qp0 = q_offset + q0 + row0, qp1 = qp0 + 8;
+  const __nv_bfloat16* kh = k + (int64_t)b * k_sb + (int64_t)hk * k_sh;
+  const __nv_bfloat16* vh = v + (int64_t)b * v_sb + (int64_t)hk * v_sh;
+  if (!tma) {
+    load_tile_sync<BQ, HD, S::CH, S::NC>(
+        sq, q + (int64_t)b * q_sb + (int64_t)h * q_sh + (int64_t)q0 * q_ss, q_ss,
+        Sq - q0, HD, tid);
+  } else {
+    mbar_wait(qfull, 0);
+  }
+
+  float sacc[BK / 2], oacc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;   // l: this thread's columns
+
+  const uint32_t q_base = smem_u32(sq) + wg * 64 * S::CH * 2;
+  for (int j = 0; j < NT; ++j) {
+    const int k0 = j * BK;
+    int s = 0;
+    if (tma) {
+      s = j % S::ST;
+      mbar_wait(kfull(s), (j / S::ST) & 1);
+    } else {
+      if (j > 0) named_sync(1, S::NC);           // stage 0 is read by all
+      load_tile_sync<BK, HD, S::CH, S::NC>(sk(0), kh + (int64_t)k0 * k_ss, k_ss,
+                                            Skv - k0, HD, tid);
+      load_tile_sync<BK, HD, S::CH, S::NC>(sv(0), vh + (int64_t)k0 * v_ss, v_ss,
+                                            Skv - k0, HD, tid);
+      fence_proxy_async();
+      named_sync(1, S::NC);
+    }
+
+    // S = Q K^T, both from shared memory.
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+    const uint32_t k_base = smem_u32(sk(s));
+    fence_regs<BK / 2>(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int c = (kk * 16) / S::CH, wo = (kk * 16) % S::CH;
+      const uint64_t da = make_desc<S::SW>(q_base + c * BQ * S::CH * 2 + wo * 2, 16,
+                                           8 * S::CH * 2);
+      const uint64_t db = make_desc<S::SW>(k_base + c * BK * S::CH * 2 + wo * 2, 16,
+                                           8 * S::CH * 2);
+      wgmma_ss<BK, 0>(sacc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(sacc);
+
+    // Scale, mask (additive -1e30), row max over the quad.
+    float mt0 = kNeg, mt1 = kNeg;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * jj + 2 * (l % 4) + (e & 1);
+        const int qp = (e < 2) ? qp0 : qp1;
+        bool keep = kp < Skv;
+        if (causal) {
+          keep = keep && qp >= kp;
+          if (window > 0) keep = keep && (qp - kp) < window;
+        }
+        float x = sacc[4 * jj + e] * scale;
+        if (!keep) x += kNeg;
+        sacc[4 * jj + e] = x;
+        if (e < 2) mt0 = fmaxf(mt0, x);
+        else mt1 = fmaxf(mt1, x);
+      }
+    }
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+    mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+    mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+    const float corr0 = exp2f((m0 - mn0) * kLog2e);
+    const float corr1 = exp2f((m1 - mn1) * kLog2e);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P = exp(S - m) in f32 for l, rounded to bf16 as the A fragments.
+    uint32_t pa[BK / 16][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      const float p0 = exp2f((sacc[4 * jj + 0] - mn0) * kLog2e);
+      const float p1 = exp2f((sacc[4 * jj + 1] - mn0) * kLog2e);
+      const float p2 = exp2f((sacc[4 * jj + 2] - mn1) * kLog2e);
+      const float p3 = exp2f((sacc[4 * jj + 3] - mn1) * kLog2e);
+      ps0 += p0 + p1;
+      ps1 += p2 + p3;
+      pa[jj / 2][(jj % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * corr0 + ps0;
+    l1 = l1 * corr1 + ps1;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      oacc[4 * jj + 0] *= corr0;
+      oacc[4 * jj + 1] *= corr0;
+      oacc[4 * jj + 2] *= corr1;
+      oacc[4 * jj + 3] *= corr1;
+    }
+
+    // O += P V, P from registers, V MN-major from shared memory.
+    if (tma) mbar_wait(vfull(s), (j / S::ST) & 1);
+    const uint32_t v_base = smem_u32(sv(s));
+    fence_regs<HD / 2>(oacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = make_desc<S::SW>(v_base + kk * 16 * S::CH * 2,
+                                           BK * S::CH * 2, 8 * S::CH * 2);
+      wgmma_rs<HD, 1>(oacc, pa[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<HD / 2>(oacc);
+    if (tma) {
+      mbar_arrive(empty(s));
+      // refill this stage once every consumer is done with it
+      if (tid == 0 && j + S::ST < NT) {
+        mbar_wait(empty(s), (j / S::ST) & 1);
+        issue_kv(j + S::ST);
+      }
+    }
+  }
+
+  // l over the quad, clamp, divide, store bf16.
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int64_t o_row = (int64_t)H * HD;
+  __nv_bfloat16* ob = o + (int64_t)b * Sq * o_row + (int64_t)h * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qr = q0 + row0 + 8 * hh;
+    if (qr >= Sq) continue;
+    const float inv = hh ? inv1 : inv0;
+    __nv_bfloat16* orow = ob + (int64_t)qr * o_row;
+#pragma unroll
+    for (int jj = 0; jj < HD / 8; ++jj) {
+      const int col = 8 * jj + 2 * (l % 4);
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+          oacc[4 * jj + 2 * hh] * inv, oacc[4 * jj + 2 * hh + 1] * inv);
+    }
+  }
+}
+
+template <int BQ, int BK, int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         int B, int H, int Hkv, int Sq, int Skv, int causal,
+                         int window, int q_offset, float scale,
+                         const long long* qs, const long long* ks,
+                         const long long* vs, int path, cudaStream_t stream) {
+  using S = FaWgmma<BQ, BK, HD>;
+  auto kern = fa_wgmma_kernel<BQ, BK, HD>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap map_q{}, map_k{}, map_v{};
+  if (path == 0) {
+    // (hd, heads, S, B), innermost first; strides of heads, S, B.
+    const uint64_t dq[4] = {HD, (uint64_t)H, (uint64_t)Sq, (uint64_t)B};
+    const uint64_t dk[4] = {HD, (uint64_t)Hkv, (uint64_t)Skv, (uint64_t)B};
+    const int64_t sq[3] = {qs[2], qs[1], qs[0]};
+    const int64_t sk[3] = {ks[2], ks[1], ks[0]};
+    const int64_t sv[3] = {vs[2], vs[1], vs[0]};
+    const uint32_t bq[4] = {(uint32_t)S::CH, 1, BQ, 1};
+    const uint32_t bk[4] = {(uint32_t)S::CH, 1, BK, 1};
+    cudaError_t err = hopper::make_map(&map_q, q, 4, dq, sq, bq, S::SW);
+    if (err == cudaSuccess) err = hopper::make_map(&map_k, k, 4, dk, sk, bk, S::SW);
+    if (err == cudaSuccess) err = hopper::make_map(&map_v, v, 4, dk, sv, bk, S::SW);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  kern<<<grid, S::THREADS, S::SMEM, stream>>>(
+      map_q, map_k, map_v, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Skv, causal, window, q_offset,
+      scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+      path == 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); all contiguous.  dtype: 0 =
-// float32, 1 = bfloat16.  window <= 0 means none.  Returns a cudaError_t
-// (0 = success); cudaErrorInvalidValue for a config or head dim that was
-// not instantiated.
-extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype,
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd).  dtype: 0 = float32
+// (contiguous tensors; strides and path unused), 1 = bfloat16.  Strides
+// of q, k, v, each (batch, sequence, head) in elements, the head dim
+// contiguous; o is contiguous.  path (bf16): 0 = TMA, 1 = the consumers'
+// own loads.  window <= 0 means none.  Returns a cudaError_t (0 =
+// success); cudaErrorInvalidValue for a config or head dim that was not
+// instantiated.
+extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int path,
                                       const void* q, const void* k, const void* v,
                                       void* o, int B, int H, int Hkv, int Sq,
                                       int Skv, int causal, int window,
-                                      int q_offset, float scale, void* stream) {
+                                      int q_offset, float scale, long long q_sb,
+                                      long long q_ss, long long q_sh,
+                                      long long k_sb, long long k_ss,
+                                      long long k_sh, long long v_sb,
+                                      long long v_ss, long long v_sh,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-#define PM2LAT_FA(BQ, BK, HD)                                                   \
-  if (bq == BQ && bk == BK && hd == HD)                                         \
-    return dtype == 0                                                           \
-               ? launch<BQ, BK, HD, float>(q, k, v, o, B, H, Hkv, Sq, Skv,      \
-                                           causal, window, q_offset, scale, s)  \
-               : launch<BQ, BK, HD, __nv_bfloat16>(q, k, v, o, B, H, Hkv, Sq,   \
-                                                   Skv, causal, window,         \
-                                                   q_offset, scale, s);
-  PM2LAT_FA(64, 64, 16)
-  PM2LAT_FA(64, 64, 32)
-  PM2LAT_FA(64, 64, 64)
-  PM2LAT_FA(64, 64, 128)
-  PM2LAT_FA(128, 128, 16)
-  PM2LAT_FA(128, 128, 32)
-  PM2LAT_FA(128, 128, 64)
-  PM2LAT_FA(128, 128, 128)
-#undef PM2LAT_FA
+  const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh},
+                  vs[3] = {v_sb, v_ss, v_sh};
+  if (dtype == 0) {
+#define PM2LAT_FA_F32(BQ, BK, HD)                                             \
+    if (bq == BQ && bk == BK && hd == HD)                                     \
+      return launch_ffma<BQ, BK, HD>(q, k, v, o, B, H, Hkv, Sq, Skv, causal,  \
+                                     window, q_offset, scale, s);
+    PM2LAT_FA_F32(64, 64, 16)
+    PM2LAT_FA_F32(64, 64, 32)
+    PM2LAT_FA_F32(64, 64, 64)
+    PM2LAT_FA_F32(64, 64, 128)
+    PM2LAT_FA_F32(128, 128, 16)
+    PM2LAT_FA_F32(128, 128, 32)
+    PM2LAT_FA_F32(128, 128, 64)
+    PM2LAT_FA_F32(128, 128, 128)
+#undef PM2LAT_FA_F32
+  } else if (dtype == 1) {
+#define PM2LAT_FA_BF16(BQ, BK, HD)                                            \
+    if (bq == BQ && bk == BK && hd == HD)                                     \
+      return launch_wgmma<BQ, BK, HD>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, \
+                                      window, q_offset, scale, qs, ks, vs,    \
+                                      path, s);
+    PM2LAT_FA_BF16(64, 64, 16)
+    PM2LAT_FA_BF16(64, 64, 32)
+    PM2LAT_FA_BF16(64, 64, 64)
+    PM2LAT_FA_BF16(64, 64, 128)
+    PM2LAT_FA_BF16(128, 128, 16)
+    PM2LAT_FA_BF16(128, 128, 32)
+    PM2LAT_FA_BF16(128, 128, 64)
+    PM2LAT_FA_BF16(128, 128, 128)
+#undef PM2LAT_FA_BF16
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory one block of an instance is launched with, in
+// bytes; -1 for an instance that does not exist.
+extern "C" long long pm2lat_flash_attention_smem(int bq, int bk, int hd, int dtype) {
+#define PM2LAT_FA_SMEM(BQ, BK, HD)                                 \
+  if (bq == BQ && bk == BK && hd == HD)                            \
+    return dtype == 0 ? (long long)ffma_smem<BQ, BK, HD>()         \
+                      : (long long)FaWgmma<BQ, BK, HD>::SMEM;
+  if (dtype != 0 && dtype != 1) return -1;
+  PM2LAT_FA_SMEM(64, 64, 16)
+  PM2LAT_FA_SMEM(64, 64, 32)
+  PM2LAT_FA_SMEM(64, 64, 64)
+  PM2LAT_FA_SMEM(64, 64, 128)
+  PM2LAT_FA_SMEM(128, 128, 16)
+  PM2LAT_FA_SMEM(128, 128, 32)
+  PM2LAT_FA_SMEM(128, 128, 64)
+  PM2LAT_FA_SMEM(128, 128, 128)
+#undef PM2LAT_FA_SMEM
+  return -1;
 }
 
 extern "C" const char* pm2lat_flash_attention_error_string(int err) {

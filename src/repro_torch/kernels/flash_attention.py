@@ -10,8 +10,10 @@ clamped at 1e-30, every KV tile visited.  Like the matmul kernel, the
 
 The TPU family was re-derived for hd <= 128: a 512x512 f32 score tile is
 1 MiB, against 227 KB of shared memory a block.  Kept: ``fa_128x128``;
-added: ``fa_64x64``.  One query row per thread, so ``bq`` is also the
-block's thread count.
+added: ``fa_64x64``.  float32 runs FFMA on the CUDA cores, one query row
+per thread; bfloat16 runs ``wgmma`` on the tensor cores, one warpgroup per
+64 query rows, with K and V tiles fed by TMA through a two-stage ring and a
+second load path for tensors TMA cannot address (``load_path``).
 """
 from __future__ import annotations
 
@@ -36,10 +38,16 @@ class FlashConfig:
     def name(self) -> str:
         return f"fa_{self.bq}x{self.bk}"
 
-    def smem_bytes(self, hd: int) -> int:
-        """Shared memory of one block, all f32: the K/V tile, the scaled Q
-        tile and the score tile (padded rows)."""
-        return 4 * (self.bk * hd + self.bq * (hd + 1) + self.bq * (self.bk + 1))
+    def smem_bytes(self, hd: int, dtype=torch.bfloat16) -> int:
+        """Dynamic shared memory of one block, as the C++ launches it.
+        float32: the K/V tile, the scaled Q tile and the score tile (padded
+        rows), all f32.  bfloat16: the Q tile and two stages of K and V
+        tiles, 1024 bytes to align them and 256 for the barriers
+        (``FaWgmma::SMEM``)."""
+        if dtype == torch.float32:
+            return 4 * (self.bk * hd + self.bq * (hd + 1)
+                        + self.bq * (self.bk + 1))
+        return 1024 + 2 * hd * (self.bq + 2 * RING_STAGES * self.bk) + 256
 
 
 # Every (config, head dim) pair is instantiated in csrc/flash_attention.cu.
@@ -49,13 +57,58 @@ CONFIGS: Tuple[FlashConfig, ...] = (
 )
 HEAD_DIMS = (16, 32, 64, 128)
 SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
+RING_STAGES = 2       # K/V stages of the bf16 kernel's ring
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The ``path`` argument of the C entry: the bf16 kernel's two ways of
+# filling its shared-memory tiles; float32 has one kernel, FFMA, which
+# ignores it.
+LOAD_PATHS = {"tma": 0, "sync": 1, "ffma": 0}
 
 
-def select_config(Sq: int, Skv: int, hd: int) -> FlashConfig:
+def load_path(q, k, v) -> str:
+    """How ``flash_attention_kernel`` loads q, k and v, each
+    (B, S, heads, hd) (``_operands``)."""
+    return _operands(q, k, v)[3]
+
+
+def _operands(q, k, v):
+    """(q, k, v, path): the tensors as the kernel takes them and how it
+    loads them.  The bf16 kernel takes strides, so only a strided head dim
+    (or float32, whose kernel takes dense tensors) is copied.  Path
+    ``"ffma"`` for float32 (the CUDA-core kernel); for bfloat16 ``"tma"``
+    when every base address and every batch, sequence and head stride is a
+    positive multiple of 16 bytes (what a TMA tensor map takes), else
+    ``"sync"`` (the consumers' own loads into the same shared-memory
+    layout).  A ragged Sq or Skv does not matter: TMA zero-fills a box past
+    the end and the row stride is heads * hd * 2 bytes whatever the
+    length."""
+    if q.dtype == torch.float32:
+        return q.contiguous(), k.contiguous(), v.contiguous(), "ffma"
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    tma = _tma_ok((q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                  q.stride()[:3] + k.stride()[:3] + v.stride()[:3])
+    return q, k, v, "tma" if tma else "sync"
+
+
+def _tma_ok(ptrs, strides) -> bool:
+    """bf16 tensors at ``ptrs`` with (batch, sequence, head) ``strides`` in
+    elements: every address and stride a multiple of 16 bytes, every stride
+    positive."""
+    bits = 0
+    for p in ptrs:
+        bits |= p
+    for st in strides:
+        if st <= 0:
+            return False
+        bits |= st << 1
+    return bits & 15 == 0
+
+
+def select_config(Sq: int, Skv: int, hd: int,
+                  dtype=torch.bfloat16) -> FlashConfig:
     """The largest feasible config whose tiles divide both lengths, else
     the smallest feasible one (the kernel masks ragged tails)."""
-    feasible = [c for c in CONFIGS if c.smem_bytes(hd) <= SMEM_BUDGET]
+    feasible = [c for c in CONFIGS if c.smem_bytes(hd, dtype) <= SMEM_BUDGET]
     for c in sorted(feasible, key=lambda c: -(c.bq * c.bk)):
         if Sq % c.bq == 0 and Skv % c.bk == 0:
             return c
@@ -103,10 +156,21 @@ def flash_attention_plain(q, k, v, config: FlashConfig, *, causal=True,
 def _entry():
     lib = build.load("flash_attention")
     fn = lib.pm2lat_flash_attention
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + \
+        [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_longlong] * 9 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def library_smem(config: FlashConfig, hd: int, dtype) -> int:
+    """The dynamic shared memory the built library launches ``config`` at
+    head dim ``hd`` with in ``dtype`` (-1 if it has no such instance)."""
+    lib = build.load("flash_attention")
+    fn = lib.pm2lat_flash_attention_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(config.bq, config.bk, hd, DTYPES[dtype])
 
 
 def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
@@ -136,7 +200,7 @@ def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_kernel: window={window} must be "
                          f"positive or None")
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if q.is_cpu and k.is_cpu and v.is_cpu:
         o = flash_attention_plain(q, k, v, config, causal=causal,
                                   window=window, q_offset=q_offset)
     else:
@@ -152,16 +216,17 @@ def _launch(q, k, v, config, causal, window, q_offset):
         raise RuntimeError("flash_attention_kernel has no backward kernel yet "
                            "(it comes with the training slice); call it under "
                            "torch.no_grad()")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v, path = _operands(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lib, fn = _entry()
-    err = fn(config.bq, config.bk, hd, DTYPES[q.dtype], q.data_ptr(),
-             k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Hkv, Sq, Skv,
-             int(bool(causal)), int(window or 0), int(q_offset),
-             1.0 / float(hd) ** 0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(config.bq, config.bk, hd, DTYPES[q.dtype], LOAD_PATHS[path],
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             B, H, Hkv, Sq, Skv, int(bool(causal)), int(window or 0),
+             int(q_offset), 1.0 / float(hd) ** 0.5,
+             *(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]),
+             torch._C._cuda_getCurrentRawStream(q.get_device()))
     build.check(err, lib, "flash_attention")
     flash_attention_kernel.launches += 1
     return o

@@ -14,6 +14,11 @@ gone (a 256x256 f32 output tile alone is the whole 256 KB register file).
 Kept: ``mm_128x128x128`` (128 KB of f32 tiles, 64 accumulators a thread at
 256 threads) and the skinny-M ``mm_8x128x128``; added: ``mm_128x32x128``
 (short K steps, a quarter of the shared memory) and ``mm_64x64x64``.
+
+Two kernels per identity: float32 runs FFMA on the CUDA cores (true f32,
+as the tables require); bfloat16 runs ``wgmma`` on the tensor cores, fed by
+TMA through a shared-memory ring (``stages`` deep), with a second load path
+for operands TMA cannot address (``load_path``).
 """
 from __future__ import annotations
 
@@ -37,10 +42,24 @@ class MatmulConfig:
     def name(self) -> str:
         return f"mm_{self.bm}x{self.bk}x{self.bn}"
 
+    @property
+    def stages(self) -> int:
+        """Depth of the bf16 kernel's shared-memory ring: as many A + B
+        stages as 192 KB holds, at most 4 (``MmWgmma::ST``)."""
+        return min(4, RING_BYTES // self._stage_bytes())
+
+    def _stage_bytes(self) -> int:
+        # wgmma takes 64 rows: a skinny A tile is padded to 64 zero rows
+        return 2 * (max(self.bm, 64) * self.bk + self.bk * self.bn)
+
     def smem_bytes(self, dtype=torch.bfloat16) -> int:
-        """Shared memory of one block: the k-major A tile (one column of
-        padding) and the B tile, in the input type."""
-        return dtype.itemsize * (self.bk * (self.bm + 1) + self.bk * self.bn)
+        """Dynamic shared memory of one block, as the C++ launches it.
+        float32: the k-major A tile (one column of padding) and the B tile.
+        bfloat16: the ring of A and B stages, 1024 bytes to align it and
+        256 for its barriers (``MmWgmma::SMEM``)."""
+        if dtype == torch.float32:
+            return 4 * (self.bk * (self.bm + 1) + self.bk * self.bn)
+        return 1024 + self.stages * self._stage_bytes() + 256
 
 
 # The kernel family; every entry is instantiated in csrc/matmul.cu.
@@ -52,7 +71,43 @@ CONFIGS: Tuple[MatmulConfig, ...] = (
 )
 
 SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
+RING_BYTES = 196608   # 192 KB: what the bf16 ring may take of it
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The ``path`` argument of the C entry: the bf16 kernel's two ways of
+# filling its shared-memory tiles; float32 has one kernel, FFMA, which
+# ignores it.
+LOAD_PATHS = {"tma": 0, "sync": 1, "ffma": 0}
+
+
+def load_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """How ``matmul_kernel`` loads a and b (``_operands``)."""
+    return _operands(a, b)[2]
+
+
+def _operands(a, b):
+    """(a, b, path): the operands as the kernel takes them and how it loads
+    them.  The kernel takes row strides, so only a strided last dim (or
+    float32, whose kernel takes dense operands) is copied.  Path ``"ffma"``
+    for float32 (the CUDA-core kernel); for bfloat16 ``"tma"`` when each
+    operand's base address and row stride are multiples of 16 bytes and its
+    rows do not overlap (what a TMA tensor map takes), else ``"sync"`` (the
+    consumers' own loads into the same shared-memory layout)."""
+    if a.dtype == torch.float32:
+        return a.contiguous(), b.contiguous(), "ffma"
+    if a.stride(1) != 1:
+        a = a.contiguous()
+    if b.stride(1) != 1:
+        b = b.contiguous()
+    tma = _tma_ok(a.data_ptr(), a.stride(0), a.shape[1],
+                  b.data_ptr(), b.stride(0), b.shape[1])
+    return a, b, "tma" if tma else "sync"
+
+
+def _tma_ok(pa, lda, k, pb, ldb, n) -> bool:
+    """bf16 operands at pa, pb with row strides lda, ldb (elements) and
+    rows of k, n elements: 16-byte aligned, non-overlapping rows."""
+    return ((pa | pb | (lda << 1) | (ldb << 1)) & 15) == 0 and lda >= k \
+        and ldb >= n
 
 
 def select_config(M: int, N: int, K: int,
@@ -86,17 +141,28 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _entry():
     lib = build.load("matmul")
     fn = lib.pm2lat_matmul
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3 + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def library_smem(config: MatmulConfig, dtype) -> int:
+    """The dynamic shared memory the built library launches ``config``
+    with in ``dtype`` (-1 if it has no such instance)."""
+    lib = build.load("matmul")
+    fn = lib.pm2lat_matmul_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    return fn(config.bm, config.bk, config.bn, DTYPES[dtype])
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
                   config: MatmulConfig) -> torch.Tensor:
     """a (M,K) @ b (K,N) -> (M,N) in a's type, f32 accumulation.  Any M, N,
-    K: the kernel masks ragged edges.  CUDA tensors launch the hand-written
-    kernel (and count the launch); CPU tensors take the plain version."""
+    K and, in bf16, any row strides and alignment (``load_path``): the
+    kernel masks ragged edges.  CUDA tensors launch the hand-written kernel
+    (and count the launch); CPU tensors take the plain version."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul_kernel: bad shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -105,20 +171,23 @@ def matmul_kernel(a: torch.Tensor, b: torch.Tensor,
                         f"must be one of {list(DTYPES)}")
     if config not in CONFIGS:
         raise ValueError(f"matmul_kernel: {config} is not in CONFIGS")
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_plain(a, b)
-    if not (a.is_cuda and a.device == b.device):
+    if not (a.is_cuda and b.is_cuda):
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return matmul_plain(a, b)
+        raise ValueError(f"matmul_kernel: tensors on {a.device} and {b.device}")
+    if a.get_device() != b.get_device():
         raise ValueError(f"matmul_kernel: tensors on {a.device} and {b.device}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise RuntimeError("matmul_kernel has no backward kernel")
-    a, b = a.contiguous(), b.contiguous()
+    a, b, path = _operands(a, b)
     M, K = a.shape
     N = b.shape[1]
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     lib, fn = _entry()
-    err = fn(config.bm, config.bk, config.bn, DTYPES[a.dtype], a.data_ptr(),
-             b.data_ptr(), c.data_ptr(), M, N, K,
-             torch.cuda.current_stream(a.device).cuda_stream)
+    err = fn(config.bm, config.bk, config.bn, DTYPES[a.dtype],
+             LOAD_PATHS[path], a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             M, N, K, a.stride(0), b.stride(0),
+             torch._C._cuda_getCurrentRawStream(a.get_device()))
     build.check(err, lib, "matmul")
     matmul_kernel.launches += 1
     return c

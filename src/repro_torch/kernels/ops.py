@@ -30,6 +30,6 @@ def flash_attention(q, k, v, config: Optional[fk.FlashConfig] = None, *,
     causal mask is aligned bottom-right (``q_offset = Skv - Sq``)."""
     Sq, hd = q.shape[1], q.shape[3]
     Skv = k.shape[1]
-    config = config or fk.select_config(Sq, Skv, hd)
+    config = config or fk.select_config(Sq, Skv, hd, q.dtype)
     return fk.flash_attention_kernel(q, k, v, config, causal=causal,
                                      window=window, q_offset=Skv - Sq)

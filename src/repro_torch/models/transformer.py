@@ -53,9 +53,9 @@ class Block(nn.Module):
         if self.mlp is not None:
             self.mlp.reset(gen)
 
-    def forward(self, x, cfg: C.ModelConfig, cdt):
+    def forward(self, x, cfg: C.ModelConfig, cdt, rope=None):
         x = x + self.attn(self.ln1(x, cfg.norm_eps), causal=True,
-                          compute_dtype=cdt)
+                          compute_dtype=cdt, rope=rope)
         if self.mlp is not None:
             x = x + self.mlp(self.ln2(x, cfg.norm_eps), cdt)
         return x
@@ -113,8 +113,10 @@ class Transformer(nn.Module):
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         x = self.embed(tokens, cdt)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for blk in self.blocks:
-            x = blk(x, cfg, cdt)
+            x = blk(x, cfg, cdt, rope)
         x = self.final_norm(x, cfg.norm_eps)
         head = self.unembed if self.unembed is not None else self.embed
         return head.unembed(x, cdt)

@@ -6,6 +6,8 @@ The same numpy inputs go to both sides.  Tolerances are those of
 ``tests/test_kernels.py``: matmul f32 atol 1e-4·sqrt(K) / rtol 1e-4, bf16
 atol 8e-2·sqrt(K) / rtol 5e-2; flash attention f32 atol 2e-5.  The CUDA
 kernels themselves run only on the card (``chip_smoke.py``)."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -262,3 +264,125 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
                                   torch.ones(1, 64, 2, 48), fk.CONFIGS[0])
     with pytest.raises(ValueError):
         fk.flash_attention_kernel(kv, kv, kv, fk.FlashConfig(512, 512))
+
+
+# ---------------------------------------------------------------------------
+# instances, load paths and shared memory of the CUDA sources
+# ---------------------------------------------------------------------------
+
+def _instances(source, macro):
+    """The argument tuples of every ``macro(...)`` line in csrc/<source>.cu."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    return [tuple(int(x) for x in m.split(","))
+            for m in re.findall(rf"^\s*{macro}\(([\d,\s]+)\)\s*$", text, re.M)]
+
+
+@pytest.mark.parametrize("dtype", ["F32", "BF16"])
+def test_cuda_instances_equal_configs_times_head_dims(dtype):
+    """Every (config, hd) the wrappers accept is instantiated once per type,
+    and nothing else is."""
+    mm = _instances("matmul", f"PM2LAT_MM_{dtype}")
+    assert sorted(t[:3] for t in mm) == sorted(
+        (c.bm, c.bk, c.bn) for c in mk.CONFIGS)
+    fa = _instances("flash_attention", f"PM2LAT_FA_{dtype}")
+    assert sorted(fa) == sorted((c.bq, c.bk, hd) for c in fk.CONFIGS
+                                for hd in fk.HEAD_DIMS)
+    # the shared-memory getters answer for the same instances
+    assert sorted(t[:3] for t in _instances("matmul", "PM2LAT_MM_SMEM")) == \
+        sorted(t[:3] for t in mm)
+    assert sorted(_instances("flash_attention", "PM2LAT_FA_SMEM")) == sorted(fa)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_instance_fits_the_shared_memory_budget(dtype):
+    for c in mk.CONFIGS:
+        assert 0 < c.smem_bytes(dtype) <= mk.SMEM_BUDGET
+    for c in fk.CONFIGS:
+        for hd in fk.HEAD_DIMS:
+            assert 0 < c.smem_bytes(hd, dtype) <= fk.SMEM_BUDGET
+
+
+def test_bf16_matmul_ring_is_at_least_double_buffered():
+    for c in mk.CONFIGS:
+        assert 2 <= c.stages <= 4
+        assert c.stages * c._stage_bytes() <= mk.RING_BYTES
+
+
+def _offset(shape, dtype, by=1):
+    n = int(np.prod(shape))
+    return torch.zeros(n + by, dtype=dtype)[by:].view(*shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned", "tma"), ("odd_k", "sync"), ("odd_n", "sync"),
+    ("ragged_aligned", "tma"), ("offset_a", "sync"), ("offset_b", "sync"),
+    ("slice_a", "sync"), ("transposed_a", "tma"), ("transposed_b", "tma"),
+    ("float32", "ffma")])
+def test_matmul_load_path(case, want):
+    """TMA exactly when both operands' base addresses and row strides are
+    multiples of 16 bytes, as the kernel takes them: an operand whose last
+    dim is strided is copied first, and the copy is aligned."""
+    bf = torch.bfloat16
+    M, K, N = 256, 384, 256
+    shapes = {"odd_k": (M, 385, N), "odd_n": (M, K, 257),
+              "ragged_aligned": (293, 408, 296)}
+    M, K, N = shapes.get(case, (M, K, N))
+    dt = torch.float32 if case == "float32" else bf
+    a, b = torch.zeros(M, K, dtype=dt), torch.zeros(K, N, dtype=dt)
+    if case == "offset_a":
+        a = _offset((M, K), bf)
+    if case == "offset_b":
+        b = _offset((K, N), bf)
+    if case == "slice_a":
+        a = torch.zeros(M, K + 1, dtype=bf)[:, 1:]
+    if case == "transposed_a":
+        a = torch.zeros(K, M, dtype=bf).t()
+    if case == "transposed_b":
+        b = torch.zeros(N + 1, K, dtype=bf)[1:].t()
+    assert mk.load_path(a, b) == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned", "tma"), ("odd_skv", "tma"), ("gqa_fused_slices", "tma"),
+    ("offset_q", "sync"), ("offset_v", "sync"), ("odd_row_stride", "sync"),
+    ("three_d", "tma"), ("strided_head_dim", "tma"), ("float32", "ffma")])
+def test_flash_load_path(case, want):
+    """TMA exactly when every base address and batch/sequence/head stride is
+    a multiple of 16 bytes, as the kernel takes the tensors (one whose head
+    dim is strided is copied first); a ragged length does not matter."""
+    bf = torch.bfloat16
+    B, S, Skv, H, Hkv, hd = 2, 128, 128, 4, 2, 32
+    if case == "odd_skv":
+        Skv = 77
+    dt = torch.float32 if case == "float32" else bf
+    q = torch.zeros(B, S, H, hd, dtype=dt)
+    k = torch.zeros(B, Skv, Hkv, hd, dtype=dt)
+    v = torch.zeros(B, Skv, Hkv, hd, dtype=dt)
+    if case == "gqa_fused_slices":
+        q, k, v = torch.zeros(B, S, H + 2 * Hkv, hd, dtype=bf).split(
+            [H, Hkv, Hkv], dim=2)
+    if case == "offset_q":
+        q = _offset((B, S, H, hd), bf)
+    if case == "offset_v":
+        v = _offset((B, Skv, Hkv, hd), bf, by=3)
+    if case == "odd_row_stride":
+        k = torch.zeros(B, Skv, Hkv * hd + 1, dtype=bf)[..., :Hkv * hd] \
+            .unflatten(2, (Hkv, hd))
+    if case == "three_d":
+        q, k, v = (torch.zeros(B * H, S, hd, dtype=bf)[:, :, None]
+                   for _ in range(3))
+    if case == "strided_head_dim":     # 2 bytes off, head-dim stride 3
+        q = torch.zeros(B, S, H, hd, 3, dtype=bf)[..., 1]
+    assert fk.load_path(q, k, v) == want
+
+
+def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
+    """Editing csrc/hopper.cuh rebuilds every library that includes it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n")
+    assert all(build.library_path(n) != before[n] for n in build.SOURCES)
