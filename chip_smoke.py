@@ -49,6 +49,7 @@ BATCH, SEQ = 8, 512
 TABLE6_SAMPLES = 6
 
 MM_SHAPE = (768, 640, 1408)   # (M, N, K) at which the matmul configs are timed
+MM_FULL = (2048, 4224, 4096)  # 528 tiles of 128 x 128: 4 full waves on 132 SMs
 
 # Tolerances of the kernels against their plain versions.  Matmul: the JAX
 # package's kernel tests (f32 atol 1e-4*sqrt(K), rtol 1e-4; bf16 atol
@@ -99,6 +100,7 @@ def phase_device():
 
 
 WGMMA_KERNELS = ("mm_wgmma_kernel", "fa_wgmma_kernel")   # the bf16 instances
+FFMA_KERNELS = ("mm_kernel", "fa_fwd_kernel")             # the float32 instances
 
 
 def kernel_label(mangled: str) -> str:
@@ -146,21 +148,28 @@ def phase_build():
     build_s = time.time() - t0
     for name in build.SOURCES:
         build.load(name)
-    # every bf16 instance runs on the tensor cores without spilling
-    hgmma = {}
+    # every bf16 instance runs on the tensor cores; every float32 instance
+    # runs FFMA and no tensor-core instruction (true f32, no TF32)
+    hgmma, ffma = {}, {}
     for name in build.SOURCES:
         for mangled, code in build.sass(name).items():
             label = kernel_label(mangled)
             if label.startswith(WGMMA_KERNELS):
                 hgmma[label] = code.count("HGMMA")
+            elif label.startswith(FFMA_KERNELS):
+                ffma[label] = {op: len(re.findall(rf"\b{op}\b", code))
+                               for op in ("FFMA", "HMMA", "HGMMA")}
     want = len(mk.CONFIGS) + len(fk.CONFIGS) * len(fk.HEAD_DIMS)
     if len(hgmma) != want or not all(hgmma.values()):
         raise AssertionError(f"HGMMA missing from the SASS of a bf16 "
                              f"instance ({want} expected): {hgmma}")
+    if len(ffma) != want or not all(c["FFMA"] and not c["HMMA"] and
+                                    not c["HGMMA"] for c in ffma.values()):
+        raise AssertionError(f"a float32 instance lacks FFMA or uses the "
+                             f"tensor cores ({want} expected): {ffma}")
     for fns in summary.values():
         for label, f in fns.items():
-            if label.startswith(WGMMA_KERNELS) and (
-                    f.get("spill_stores", 0) or f.get("spill_loads", 0)):
+            if f.get("spill_stores", 0) or f.get("spill_loads", 0):
                 raise AssertionError(f"{label} spills: {f}")
     serialised = [line for log in logs.values() for line in log.splitlines()
                   if "Performance Loss" in line]
@@ -181,12 +190,52 @@ def phase_build():
     if bad:
         raise AssertionError(f"dynamic shared memory differs from Python's "
                              f"smem_bytes: {bad}")
+    occupancy = float32_occupancy(summary, ffma)
     # ptxas says "Potential Performance Loss" where it serialises wgmma
     warnings = sorted({line.strip() for log in logs.values()
                        for line in log.splitlines()
                        if "warning" in line.lower() or "Performance Loss" in line})
-    emit("build", seconds=build_s, ptxas=summary, hgmma_count=hgmma,
-         dynamic_smem_bytes=dynamic_smem, compiler_warnings=warnings)
+    out = dict(seconds=build_s, ptxas=summary, hgmma_count=hgmma,
+               float32_sass=ffma, float32_occupancy=occupancy,
+               dynamic_smem_bytes=dynamic_smem, compiler_warnings=warnings)
+    emit("build", **out)
+    return out
+
+
+def float32_occupancy(summary, sass):
+    """Per float32 instance: registers, spills, shared memory and resident
+    blocks per SM from the card's occupancy calculator, held equal to
+    ``build.blocks_per_sm``'s estimate from the same threads, registers and
+    shared memory; every flash instance at hd <= 64 must hold 8 warps an SM
+    or more."""
+    rows, bad = {}, []
+    instances = [(f"mm_kernel<{c.bm},{c.bk},{c.bn},{tm},{tn},f32>", "matmul",
+                  c.ffma_threads, c.smem_bytes(torch.float32),
+                  mk.library_blocks_per_sm(c), None)
+                 for c in mk.CONFIGS for tm, tn in [c.ffma_tile]]
+    instances += [(f"fa_fwd_kernel<{c.bq},{c.bk},{hd},f32>", "flash_attention",
+                   c.threads, c.smem_bytes(hd, torch.float32),
+                   fk.library_blocks_per_sm(c, hd), hd)
+                  for c in fk.CONFIGS for hd in fk.HEAD_DIMS]
+    for label, source, threads, smem, lib, hd in instances:
+        f = summary[source].get(label)
+        if f is None:
+            raise AssertionError(f"no ptxas report for {label}: "
+                                 f"{sorted(summary[source])}")
+        est = build.blocks_per_sm(threads, f["regs"], smem + f["static_smem"])
+        warps = lib * threads // 32
+        rows[label] = {"regs": f["regs"], "threads": threads,
+                       "spill_bytes": f.get("spill_stores", 0)
+                       + f.get("spill_loads", 0), "smem_bytes": smem,
+                       "blocks_per_sm": lib, "estimate": est,
+                       "warps_per_sm": warps,
+                       "ffma_in_sass": sass[label]["FFMA"]}
+        if lib != est or (hd is not None and hd <= 64 and warps < 8):
+            bad.append((label, rows[label]))
+    if bad:
+        raise AssertionError(f"float32 occupancy differs from the estimate or "
+                             f"holds fewer than 8 warps an SM: {bad}")
+    return rows
 
 
 def offset(shape, dt, gen, by=1):
@@ -328,11 +377,12 @@ def phase_calibrate():
             raise AssertionError(f"store lacks tables for {dt}: has "
                                  f"{sorted(kinds.get(dt, ()))}")
     mm = store.memory_model
-    emit("calibrate", seconds=store.meta["seconds"], device=store.meta["device"],
-         tables=len(store.tables),
-         families={k: sorted(v) for k, v in kinds.items()},
-         memory_model_train_rel_err=mm["train_rel_err"])
-    return store
+    out = dict(seconds=store.meta["seconds"], device=store.meta["device"],
+               tables=len(store.tables),
+               families={k: sorted(v) for k, v in kinds.items()},
+               memory_model_train_rel_err=mm["train_rel_err"])
+    emit("calibrate", **out)
+    return store, out
 
 
 def phase_table6(store):
@@ -423,7 +473,7 @@ def phase_model(store):
             finite = bool(torch.isfinite(logits).all())
             shape = list(logits.shape)
             del logits
-            trace = forward_trace(model, tokens) if dname == "bfloat16" else None
+            trace = forward_trace(model, tokens)
             measured = profiler.measure(model, tokens)
         total, rows = pm.predict_model(cfg, BATCH, SEQ, dtype=dname)
         top = sorted(rows, key=lambda r: -r.seconds)[:5]
@@ -436,8 +486,7 @@ def phase_model(store):
                "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3]
                                   for r in top],
                "peak_mem_gb": peak / 1e9}
-        if trace:
-            res["device_trace"] = trace
+        res["device_trace"] = trace
         emit("model", **res)
         if not finite or shape != [BATCH, SEQ, model.padded_vocab]:
             raise AssertionError(f"{MODEL} {dname}: logits {shape}, finite="
@@ -519,9 +568,10 @@ def kernel_lines(launches, mm_pick):
     PyTorch call's (a yardstick only), and the card's bound.  The matmul is
     timed at MM_SHAPE in every config, ``mm_pick`` marked; the flash kernel
     at qwen2-0.5b's prefill attention in both configs.  Under ``float32``,
-    the same numbers for the float32 instance (FFMA) at the same shape, in
-    ``mm_128x128x128`` (matmul) or the config ``select_config`` picks
-    (flash)."""
+    the same numbers for the float32 instances (FFMA) at the same shapes,
+    headed by ``mm_128x128x128`` (matmul) or the config ``select_config``
+    picks (flash); the matmul's adds its time at the card-filling shape
+    MM_FULL.  Every number here is measured, but ``bound_ms``."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
     lines = []
@@ -537,17 +587,29 @@ def kernel_lines(launches, mm_pick):
         return {"ms": profiler.measure(run, *args) * 1e3,
                 "device_ms": "not measured" if dev is None else dev}
 
-    def float32(config, run, plain, tol, args, lib, lib_args, nbytes, flops):
-        """The float32 instance, timed as the bf16 line is; ``nbytes`` and
-        ``flops`` are the bf16 line's (the bytes double in float32)."""
-        err, ok = close(run(*args), plain(*args), *tol)
+    def each_config(configs, run, want, tol, args, extra=lambda c: {}):
+        """One row per config: its error against ``want``, its times, and
+        what ``extra`` adds."""
+        rows = []
+        for cfg in configs:
+            err, ok = close(run(cfg, *args), want(cfg, *args), *tol)
+            rows.append({"config": cfg.name, "max_abs_err": err, "ok": ok,
+                         **timed(lambda *x, cfg=cfg: run(cfg, *x), *args),
+                         **extra(cfg)})
+        return rows
+
+    def float32(head, configs, plain, args, lib, lib_args, nbytes, flops):
+        """The float32 instances, timed as the bf16 line is, headed by the
+        row of config ``head``; ``nbytes`` and ``flops`` are the bf16
+        line's (the bytes double in float32)."""
+        row = next(c for c in configs if c["config"] == head)
         bms, by = bound(2 * nbytes, flops, "float32")
         libt = timed(lib, *lib_args)
-        return {"config": config, "max_abs_err": err, "ok": ok,
-                **timed(run, *args),
+        return {**row, "ok": all(c["ok"] for c in configs),
+                "max_abs_err": max(c["max_abs_err"] for c in configs),
                 "plain_ms": profiler.measure(plain, *args) * 1e3,
                 "bound_ms": bms, "bound_by": by, "library_ms": libt["ms"],
-                "library_device_ms": libt["device_ms"]}
+                "library_device_ms": libt["device_ms"], "configs": configs}
 
     m, n, k = MM_SHAPE
     a = torch.randn(m, k, generator=gen, device="cuda").to(bf)
@@ -565,8 +627,12 @@ def kernel_lines(launches, mm_pick):
     nbytes, flops = 2 * (m * k + k * n + m * n), 2.0 * m * n * k
     bms, by = bound(nbytes, flops)
     lib = timed(torch.matmul, a, b)
-    cfg = next(c for c in mk.CONFIGS if c.name == "mm_128x128x128")
     a32, b32 = a.float(), b.float()
+    mm_tol = lambda K: (MM_TOL["float32"][0] * K ** 0.5, MM_TOL["float32"][1])
+    f32_configs = each_config(
+        mk.CONFIGS, lambda cfg, a, b: mk.matmul_kernel(a, b, cfg),
+        lambda cfg, a, b: mk.matmul_plain(a, b), mm_tol(k), (a32, b32),
+        lambda cfg: {"path": mk.load_path(a32, b32)})
     lines.append({
         "name": "matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -580,11 +646,10 @@ def kernel_lines(launches, mm_pick):
         "bound_ms": bms, "bound_by": by,
         "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
         "configs": configs,
-        "float32": float32(
-            cfg.name, lambda a, b: mk.matmul_kernel(a, b, cfg),
-            mk.matmul_plain, (MM_TOL["float32"][0] * k ** 0.5,
-                              MM_TOL["float32"][1]),
-            (a32, b32), torch.matmul, (a32, b32), nbytes, flops)})
+        "float32": {**float32("mm_128x128x128", f32_configs, mk.matmul_plain,
+                              (a32, b32), torch.matmul, (a32, b32), nbytes,
+                              flops),
+                    "card_filling": card_filling_matmul(gen, timed, mm_tol)}})
 
     # flash: qwen2-0.5b's prefill attention, bf16, as the model calls it
     c = cfg_registry.get(MODEL)
@@ -617,6 +682,12 @@ def kernel_lines(launches, mm_pick):
     lib = timed(sdpa, *map(per_head, (q, kk, vv)))
     f32_args = tuple(x.float() for x in (q, kk, vv))
     pick32 = fk.select_config(S, S, hd, f32)
+    f32_configs = each_config(
+        fk.CONFIGS, lambda cfg, q, k, v: fk.flash_attention_kernel(
+            q, k, v, cfg, causal=True),
+        lambda cfg, q, k, v: fk.flash_attention_plain(q, k, v, cfg, **kw),
+        FA_TOL["float32"], f32_args,
+        lambda cfg: {"pick": cfg == pick32})
     lines.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -631,19 +702,71 @@ def kernel_lines(launches, mm_pick):
         "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
         "configs": configs,
         "float32": float32(
-            pick32.name, lambda q, k, v: fk.flash_attention_kernel(
-                q, k, v, pick32, causal=True),
+            pick32.name, f32_configs,
             lambda q, k, v: fk.flash_attention_plain(q, k, v, pick32,
                                                      causal=True),
-            FA_TOL["float32"], f32_args, sdpa, tuple(map(per_head, f32_args)),
-            nbytes, flops)})
+            f32_args, sdpa, tuple(map(per_head, f32_args)), nbytes, flops)})
     for line in lines:
-        if not (line["ok"] and line["float32"]["ok"]):
+        f = line["float32"]
+        if not (line["ok"] and f["ok"] and f.get("card_filling", f)["ok"]):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
-                f"{line['max_abs_err']} (bf16), "
-                f"{line['float32']['max_abs_err']} (float32)")
+                f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
     return lines
+
+
+def matmul_floors(f32):
+    """What each float32 matmul identity can reach where the ``kernels``
+    line timed it (``f32``: that line's ``float32``, at MM_SHAPE, and its
+    card-filling row at MM_FULL): its output tiles on the card's SMs, each
+    tile at the per-SM FFMA rate (67 TFLOP/s over the SM count), in
+    ceil(tiles / SMs) waves; the bytes its tiling streams (each block reads
+    its A and B panels and writes its C tile), which bound the skinny
+    mm_8x128x128; and the share of that floor the measured device time
+    reaches.  Worked out from the shapes, so kept out of the ``kernels``
+    line."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = H100_SXM.peak("float32") / sms
+    by_name = {c.name: c for c in mk.CONFIGS}
+    rows = [(c["config"], MM_SHAPE, c["device_ms"]) for c in f32["configs"]]
+    full = f32["card_filling"]
+    rows.append((full["config"], tuple(full["shape"]), full["device_ms"]))
+    out = []
+    for name, (m, n, k), dev in rows:
+        cfg = by_name[name]
+        tiles = -(-m // cfg.bm) * -(-n // cfg.bn)
+        floor = -(-tiles // sms) * 2.0 * cfg.bm * cfg.bn * k / per_sm * 1e3
+        out.append({"config": name, "shape": [m, n, k], "sms": sms,
+                    "tiles": tiles, "per_sm_floor_ms": floor,
+                    "streamed_bytes": 4 * tiles * (cfg.bm * k + k * cfg.bn
+                                                   + cfg.bm * cfg.bn),
+                    "device_ms": dev,
+                    "floor_share": floor / dev if isinstance(dev, float)
+                    else "not measured"})
+    return out
+
+
+def card_filling_matmul(gen, timed, tol):
+    """mm_128x128x128 in float32 at MM_FULL (4 full waves of 128 x 128
+    tiles) against torch.matmul, as TFLOP/s of device time."""
+    m, n, k = MM_FULL
+    a = torch.randn(m, k, generator=gen, device="cuda")
+    b = torch.randn(k, n, generator=gen, device="cuda")
+    cfg = mk.MatmulConfig(128, 128, 128)
+    run = lambda a, b: mk.matmul_kernel(a, b, cfg)
+    err, ok = close(run(a, b), mk.matmul_plain(a, b), *tol(k))
+    t, lib = timed(run, a, b), timed(torch.matmul, a, b)
+    flops = 2.0 * m * n * k
+    tflops = lambda ms: flops / (ms * 1e-3) / 1e12 if isinstance(ms, float) \
+        else "not measured"
+    return {"config": cfg.name, "shape": [m, n, k], "max_abs_err": err,
+            "ok": ok, **t, "tflops": tflops(t["device_ms"]),
+            "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+            "library_tflops": tflops(lib["device_ms"]),
+            "peak_share": (tflops(t["device_ms"]) * 1e12
+                           / H100_SXM.peak("float32")
+                           if isinstance(t["device_ms"], float) else
+                           "not measured")}
 
 
 def main() -> int:
@@ -657,7 +780,7 @@ def main() -> int:
     record = {}
 
     smi = phase_device()
-    phase_build()
+    record["build"] = phase_build()
 
     mm_err, mm_rows = check_matmul(("float32", "bfloat16"))
     fa_err, fa_rows = check_flash(("float32", "bfloat16"))
@@ -674,7 +797,7 @@ def main() -> int:
     # --- the main path: counts from 0, read right after ---
     mk.matmul_kernel.launches = 0
     fk.flash_attention_kernel.launches = 0
-    store = phase_calibrate()
+    store, record["calibrate"] = phase_calibrate()
     table6 = phase_table6(store)
     model = phase_model(store)
     launches = {"matmul": mk.matmul_kernel.launches,
@@ -688,7 +811,11 @@ def main() -> int:
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
         "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
     kernels = kernel_lines(launches, mm_pick)
+    floors = matmul_floors(next(x for x in kernels
+                                if x["name"] == "matmul")["float32"])
+    emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, kernels=kernels,
+                  matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
 

@@ -25,6 +25,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
+# One H100 SM (compute capability 9.0) as the CUDA occupancy calculator
+# counts it: registers are handed out per warp in units of 256, within each
+# of 4 sub-partitions; shared memory in units of 128 bytes, with 1 KB the
+# runtime keeps per block, out of 228 KB.
+SM_REGISTERS = 65536
+SM_SUBPARTITIONS = 4
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+SM_WARPS = 64
+SM_BLOCKS = 32
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -86,6 +97,28 @@ def _compile(todo):
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
+
+
+def blocks_per_sm(threads: int, regs: int, smem: int) -> int:
+    """Resident blocks of a kernel on one SM at ``threads`` a block,
+    ``regs`` registers a thread and ``smem`` bytes of shared memory a
+    block: the smallest of the warp, register, shared-memory and block
+    limits (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``'s rule)."""
+    up = lambda x, unit: -(-x // unit) * unit
+    warps = up(threads, 32) // 32
+    regs_warp = up(regs * 32, 256)
+    if regs_warp * up(warps, SM_SUBPARTITIONS) > SM_REGISTERS:
+        return 0
+    by_regs = (SM_REGISTERS // SM_SUBPARTITIONS // regs_warp
+               * SM_SUBPARTITIONS // warps) if regs_warp else SM_BLOCKS
+    by_smem = SM_SMEM // up(smem + BLOCK_RESERVED_SMEM, 128)
+    return min(SM_WARPS // warps, by_regs, by_smem, SM_BLOCKS)
+
+
+def aligned16(t):
+    """``t``, or a copy of it at a 16-byte aligned address: what the
+    float32 kernels' 16-byte copies need of a dense operand."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def cuobjdump() -> str:

@@ -50,173 +50,278 @@
 // feed the same wgmma.  The wrapper chooses the path
 // (flash_attention.py::load_path) and passes it in.
 //
-// float32 (fa_fwd_kernel): FFMA on the CUDA cores, one query row per
-// thread (the tables' "float32" is true f32, and the tensor cores have no
-// true-f32 mode).  Shared memory per block:
-// the KV tile [BK][HD] (K, then V in the same buffer), the scaled Q tile
-// [BQ][HD + 1] and the score tile [BQ][BK + 1], all f32; the +1 paddings
-// make each thread's private row conflict-free while the K/V rows are
-// read as broadcasts.
+// float32 (fa_fwd_kernel): register-tiled FFMA on the CUDA cores (the
+// tables' "float32" is true f32; the tensor cores have no true-f32 mode),
+// bound by 67 TFLOP/s: the full square at qwen2-0.5b prefill is 7.52
+// GFLOP, 0.112 ms.  2 BQ threads a block in a (BQ/8) x 16 grid; each owns
+// 8 query rows (two groups of 4, ty*4 and BQ/2 + ty*4) by BK/16 key columns
+// (tx + 16 c) of S, and the same 8 rows by hd/16 columns of O.  Shared
+// memory: the scaled Q tile [BQ][hd], K [BK][hd + 4], V [BK][hd] and P^T
+// [BK][BQ + 4], all f32.  S = Q K^T takes, per 4 steps of d, 8 float4 of Q
+// (one address per warp half: a broadcast) and BK/16 float4 of K (the
+// padded rows put 8 neighbouring lanes on 32 banks) for 32 BK/16 FMAs; the
+// row max and, at the end, the row sum reduce over the 16 lanes that share
+// a row by __shfl_xor.  P goes to shared memory once, transposed; O += P V
+// reads 2 float4 of P (a broadcast) and hd/16 floats of V a key.  K and V
+// tiles come by cp.async, 16 bytes a thread, zero-filled past Skv: V's copy
+// is issued before S's product and K's next tile before O += P V, so each
+// overlaps a product.  At hd <= 64 every instance holds 8 warps an SM or
+// more (fa_128x128: one block of 8; fa_64x64: three blocks of 4).
+// Where the four tiles pass 227 KB (fa_128x128 at hd 128), P is written
+// over K, and K's next copy waits for O += P V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "simt.cuh"
 #include "hopper.cuh"
 
 namespace {
 
+// ------------------------------------------------------------- float32
+
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
+// One float32 instance.  THREADS = 2 BQ threads in a TY x 16 grid; thread
+// (ty, tx) owns TM = 8 query rows, ty*4 + {0..3} and BQ/2 + ty*4 + {0..3},
+// for both S and O; key columns tx + 16 c (c < TN) of S; and, in OG groups
+// of OV, columns g * (HD / OG) + tx * OV + {0..OV-1} of O.
 template <int BQ, int BK, int HD>
-constexpr size_t smem_floats() {
-  return (size_t)BK * HD + (size_t)BQ * (HD + 1) + (size_t)BQ * (BK + 1);
-}
+struct FaFfma {
+  static constexpr int TX = 16;                    // threads along keys
+  static constexpr int TM = 8;                     // query rows a thread owns
+  static constexpr int TY = BQ / TM;               // threads along queries
+  static constexpr int THREADS = TX * TY;
+  static constexpr int TN = BK / TX;               // key columns a thread owns
+  static constexpr int OC = HD / TX;               // O columns a thread owns
+  static constexpr int OV = OC < 4 ? OC : 4;       // their vector width
+  static constexpr int OG = OC / OV;               // and groups
+  static constexpr int KS = HD + 4;                // padded row of K
+  static constexpr int PS = BQ + 4;                // padded row of P^T
+  // floats of Q [BQ][HD] (scaled), K [BK][KS], V [BK][HD], P^T [BK][PS]
+  static constexpr int QF = BQ * HD, KF = BK * KS, VF = BK * HD, PF = BK * PS;
+  // Where the four do not fit in 227 KB (fa_128x128 at hd 128), P is
+  // written over K once every thread is done with K; K's next tile is then
+  // copied after O += P V instead of during it.
+  static constexpr bool ALIAS = 4 * (QF + KF + VF + PF) > 232448;
+  static constexpr int KPF = ALIAS ? (KF > PF ? KF : PF) : KF + PF;
+  static constexpr size_t SMEM = 4 * (size_t)(QF + KPF + VF);
+  static_assert(BQ % 32 == 0 && BK % TX == 0 && HD % TX == 0, "bad tile");
+  static_assert(OC == 1 || OC == 2 || OC % 4 == 0, "bad head dim");
+};
 
-// Load rows [s0, s0 + ROWS) of one head into dst[ROWS][DST_STRIDE] as f32,
-// zero past `len`.  Row s of the head starts at src + s * row_stride.
-template <int ROWS, int HD, int DST_STRIDE, int NT, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          size_t row_stride, int s0, int len,
-                                          float scale) {
-  for (int e = threadIdx.x; e < ROWS * HD; e += NT) {
-    const int r = e / HD, d = e % HD;
-    const int s = s0 + r;
-    dst[r * DST_STRIDE + d] = s < len ? to_f32(src[(size_t)s * row_stride + d]) * scale : 0.f;
-  }
-}
-
-template <int BQ, int BK, int HD, typename T>
-__global__ void __launch_bounds__(BQ)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int Hkv,
-              int Sq, int Skv, int causal, int window, int q_offset,
-              float scale) {
+// minBlocks 1: without it ptxas caps fa_64x64 at 168 registers and spills
+// at hd 128.
+template <int BQ, int BK, int HD>
+__global__ void __launch_bounds__(FaFfma<BQ, BK, HD>::THREADS, 1)
+fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int H, int Hkv,
+              int Sq, int Skv, int causal, int window, int q_offset, float scale) {
+  using S = FaFfma<BQ, BK, HD>;
+  using namespace simt;
+  constexpr int TM = S::TM, TN = S::TN, TX = S::TX, NT = S::THREADS;
+  constexpr int OC = S::OC, OV = S::OV, OG = S::OG, KS = S::KS, PS = S::PS;
   extern __shared__ __align__(16) float smem[];
-  float* KV = smem;                    // [BK][HD]
-  float* Qs = KV + BK * HD;            // [BQ][HD + 1]
-  float* S = Qs + BQ * (HD + 1);       // [BQ][BK + 1]
+  float* Qs = smem;
+  float* Ks = Qs + S::QF;
+  float* Ps = Ks + (S::ALIAS ? 0 : S::KF);
+  float* Vs = Qs + S::QF + S::KPF;
 
   const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const int q0 = blockIdx.y * BQ;
   const size_t q_row = (size_t)H * HD, kv_row = (size_t)Hkv * HD;
-  const T* qh = q + (size_t)b * Sq * q_row + (size_t)h * HD;
-  const T* kh = k + (size_t)b * Skv * kv_row + (size_t)hk * HD;
-  const T* vh = v + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const float* qh = q + (size_t)b * Sq * q_row + (size_t)h * HD;
+  const float* kh = k + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const float* vh = v + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  auto row = [&](int r) { return (r / 4) * (BQ / 2) + ty * 4 + r % 4; };
 
-  load_tile<BQ, HD, HD + 1, BQ>(Qs, qh, q_row, q0, Sq, scale);
-  __syncthreads();
-  // Up to hd 64 the thread's q row also fits in registers beside acc.
-  constexpr bool kQInRegs = HD <= 64;
-  const float* qs = Qs + tid * (HD + 1);
-  float qreg[kQInRegs ? HD : 1];
-  if constexpr (kQInRegs) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qreg[d] = qs[d];
-  }
-  auto qv = [&](int d) -> float {
-    if constexpr (kQInRegs) return qreg[d];
-    else return qs[d];
+  // K or V rows [k0, k0 + BK) into dst (row stride ds) by 16-byte copies,
+  // zeros past Skv.
+  auto load_kv = [&](float* dst, int ds, const float* src, int k0) {
+    for (int e = tid; e < BK * HD / 4; e += NT) {
+      const int r = e / (HD / 4), c = 4 * (e % (HD / 4));
+      const bool ok = k0 + r < Skv;
+      cp_async16(dst + r * ds + c, ok ? src + (size_t)(k0 + r) * kv_row + c : src, ok);
+    }
   };
-  float* sr = S + tid * (BK + 1);
-  const int qp = q_offset + q0 + tid;
 
-  float m = kNegInf, l = 0.f;
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  // Q once, scaled in f32 as the TPU kernel scales it; zeros past Sq.
+  for (int e = tid; e < BQ * HD / 4; e += NT) {
+    const int r = e / (HD / 4), c = 4 * (e % (HD / 4));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) {
+      x = ld4(qh + (size_t)(q0 + r) * q_row + c);
+      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+    }
+    st4(Qs + r * HD + c, x);
+  }
+  load_kv(Ks, KS, kh, 0);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < Skv; k0 += BK) {
-    load_tile<BK, HD, HD, BQ>(KV, kh, kv_row, k0, Skv, 1.f);
-    __syncthreads();
-    float mt = kNegInf;
-    for (int j = 0; j < BK; ++j) {
-      const float4* kj = reinterpret_cast<const float4*>(KV + j * HD);
-      float s = 0.f;
+  float m[TM], l[TM], acc[TM][OC];     // l: this thread's columns only
 #pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 kv4 = kj[d4];
-        s = fmaf(qv(4 * d4 + 0), kv4.x, s);
-        s = fmaf(qv(4 * d4 + 1), kv4.y, s);
-        s = fmaf(qv(4 * d4 + 2), kv4.z, s);
-        s = fmaf(qv(4 * d4 + 3), kv4.w, s);
-      }
-      const int kp = k0 + j;
-      bool keep = kp < Skv;
-      if (causal) {
-        keep = keep && qp >= kp;
-        if (window > 0) keep = keep && (qp - kp) < window;
-      }
-      if (!keep) s += kNegInf;
-      sr[j] = s;
-      mt = fmaxf(mt, s);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(sr[j] - m_new);
-      sr[j] = p;
-      psum += p;
-    }
-    l = l * corr + psum;
-    m = m_new;
+  for (int r = 0; r < TM; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= corr;
-    __syncthreads();                   // every thread is done with K
-    load_tile<BK, HD, HD, BQ>(KV, vh, kv_row, k0, Skv, 1.f);
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      const float4* vj = reinterpret_cast<const float4*>(KV + j * HD);
-      const float p = sr[j];
-#pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        const float4 v4 = vj[d4];
-        acc[4 * d4 + 0] = fmaf(p, v4.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, v4.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, v4.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, v4.w, acc[4 * d4 + 3]);
-      }
-    }
-    __syncthreads();                   // every thread is done with V
+    for (int c = 0; c < OC; ++c) acc[r][c] = 0.f;
   }
 
-  if (q0 + tid < Sq) {
-    const float lc = fmaxf(l, 1e-30f);
-    T* orow = o + (size_t)b * Sq * q_row + (size_t)(q0 + tid) * q_row + (size_t)h * HD;
+  const int NKV = (Skv + BK - 1) / BK;
+  for (int j = 0; j < NKV; ++j) {
+    const int k0 = j * BK;
+    load_kv(Vs, HD, vh, k0);           // V's copy overlaps S's product
+    cp_async_commit();
+    cp_async_wait<1>();                // K tile j (and Q, by the barrier)
+    __syncthreads();
+
+    // S = (scale q) K^T: per 4 steps of d, TM float4 of Q (a broadcast) and
+    // TN float4 of K (rows tx + 16 c: 8 lanes on 32 banks) for 4 TM TN FFMAs.
+    float s[TM][TN];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) orow[d] = from_f32<T>(acc[d] / lc);
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) s[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float4 kf[TN];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) kf[c] = ld4(Ks + (tx + TX * c) * KS + d);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const float4 qf = ld4(Qs + row(r) * HD + d);
+#pragma unroll
+        for (int c = 0; c < TN; ++c) {
+          s[r][c] = fmaf(qf.x, kf[c].x, s[r][c]);
+          s[r][c] = fmaf(qf.y, kf[c].y, s[r][c]);
+          s[r][c] = fmaf(qf.z, kf[c].z, s[r][c]);
+          s[r][c] = fmaf(qf.w, kf[c].w, s[r][c]);
+        }
+      }
+    }
+
+    // Mask (add -1e30), row max over the 16 lanes that share a row, P =
+    // exp(S - m), rescale l and O by exp(m_old - m_new).
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int qp = q_offset + q0 + row(r);
+      float mt = kNegInf;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int kp = k0 + tx + TX * c;
+        bool keep = kp < Skv;
+        if (causal) {
+          keep = keep && qp >= kp;
+          if (window > 0) keep = keep && (qp - kp) < window;
+        }
+        if (!keep) s[r][c] += kNegInf;
+        mt = fmaxf(mt, s[r][c]);
+      }
+#pragma unroll
+      for (int x = 1; x < TX; x *= 2) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
+      const float m_new = fmaxf(m[r], mt);
+      const float corr = expf(m[r] - m_new);
+      m[r] = m_new;
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        s[r][c] = expf(s[r][c] - m_new);
+        ps += s[r][c];
+      }
+      l[r] = l[r] * corr + ps;
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[r][c] *= corr;
+    }
+
+    // P^T [key][query] into shared memory once: rows tx + 16 c, 8 lanes on
+    // 32 banks (PS = BQ + 4).
+    if constexpr (S::ALIAS) __syncthreads();   // every thread is done with K
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      float* pr = Ps + (tx + TX * c) * PS + ty * 4;
+      st4(pr, make_float4(s[0][c], s[1][c], s[2][c], s[3][c]));
+      st4(pr + BQ / 2, make_float4(s[4][c], s[5][c], s[6][c], s[7][c]));
+    }
+    cp_async_wait<0>();                // V tile j
+    __syncthreads();                   // P and V visible; K free
+    if (!S::ALIAS && j + 1 < NKV) load_kv(Ks, KS, kh, k0 + BK);
+    cp_async_commit();                 // K's next copy overlaps O += P V
+
+    // O += P V: per key, 2 float4 of P (a broadcast) and OG vectors of V.
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 pa = ld4(Ps + kk * PS + ty * 4);
+      const float4 pb = ld4(Ps + kk * PS + BQ / 2 + ty * 4);
+      float vv[OC];
+#pragma unroll
+      for (int g = 0; g < OG; ++g) ldv<OV>(Vs + kk * HD + g * (HD / OG) + tx * OV, vv + g * OV);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        const float p = lane(r < 4 ? pa : pb, r % 4);
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+      }
+    }
+    __syncthreads();                   // every thread is done with P and V
+    if (S::ALIAS && j + 1 < NKV) {
+      load_kv(Ks, KS, kh, k0 + BK);
+      cp_async_commit();
+    }
+  }
+
+  cp_async_wait<0>();                  // nothing left in flight at exit
+
+  // l over the 16 lanes of a row, clamp, divide, store.
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int x = 1; x < TX; x *= 2) lr += __shfl_xor_sync(0xffffffffu, lr, x);
+    const int qr = q0 + row(r);
+    if (qr >= Sq) continue;
+    const float lc = fmaxf(lr, 1e-30f);
+    float out[OC];
+#pragma unroll
+    for (int c = 0; c < OC; ++c) out[c] = acc[r][c] / lc;
+    float* orow = o + (size_t)b * Sq * q_row + (size_t)qr * q_row + (size_t)h * HD;
+#pragma unroll
+    for (int g = 0; g < OG; ++g) stv<OV>(orow + g * (HD / OG) + tx * OV, out + g * OV);
   }
 }
 
 template <int BQ, int BK, int HD>
-constexpr size_t ffma_smem() {
-  return sizeof(float) * smem_floats<BQ, BK, HD>();
+cudaError_t prepare_ffma() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_fwd_kernel<BQ, BK, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)FaFfma<BQ, BK, HD>::SMEM);
+  return attr;
 }
 
 template <int BQ, int BK, int HD>
 cudaError_t launch_ffma(const void* q, const void* k, const void* v, void* o, int B,
                         int H, int Hkv, int Sq, int Skv, int causal, int window,
                         int q_offset, float scale, cudaStream_t stream) {
-  static_assert(HD % 4 == 0 && BQ % 4 == 0, "float4 rows need 16-byte alignment");
-  constexpr size_t smem = ffma_smem<BQ, BK, HD>();
-  auto kern = fa_fwd_kernel<BQ, BK, HD, float>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using S = FaFfma<BQ, BK, HD>;
+  const cudaError_t attr = prepare_ffma<BQ, BK, HD>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  kern<<<grid, BQ, smem, stream>>>(
+  fa_fwd_kernel<BQ, BK, HD><<<grid, S::THREADS, S::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
       causal, window, q_offset, scale);
   return cudaGetLastError();
+}
+
+template <int BQ, int BK, int HD>
+long long occupancy_ffma() {
+  using S = FaFfma<BQ, BK, HD>;
+  const cudaError_t attr = prepare_ffma<BQ, BK, HD>();
+  if (attr != cudaSuccess) return -(long long)attr;
+  return simt::blocks_per_sm(fa_fwd_kernel<BQ, BK, HD>, S::THREADS, S::SMEM);
 }
 
 // ------------------------------------------------------------- bfloat16
@@ -505,7 +610,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd).  dtype: 0 = float32
-// (contiguous tensors; strides and path unused), 1 = bfloat16.  Strides
+// (contiguous tensors at 16-byte aligned addresses; strides and path
+// unused), 1 = bfloat16.  Strides
 // of q, k, v, each (batch, sequence, head) in elements, the head dim
 // contiguous; o is contiguous.  path (bf16): 0 = TMA, 1 = the consumers'
 // own loads.  window <= 0 means none.  Returns a cudaError_t (0 =
@@ -563,7 +669,7 @@ extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int pat
 extern "C" long long pm2lat_flash_attention_smem(int bq, int bk, int hd, int dtype) {
 #define PM2LAT_FA_SMEM(BQ, BK, HD)                                 \
   if (bq == BQ && bk == BK && hd == HD)                            \
-    return dtype == 0 ? (long long)ffma_smem<BQ, BK, HD>()         \
+    return dtype == 0 ? (long long)FaFfma<BQ, BK, HD>::SMEM        \
                       : (long long)FaWgmma<BQ, BK, HD>::SMEM;
   if (dtype != 0 && dtype != 1) return -1;
   PM2LAT_FA_SMEM(64, 64, 16)
@@ -575,6 +681,26 @@ extern "C" long long pm2lat_flash_attention_smem(int bq, int bk, int hd, int dty
   PM2LAT_FA_SMEM(128, 128, 64)
   PM2LAT_FA_SMEM(128, 128, 128)
 #undef PM2LAT_FA_SMEM
+  return -1;
+}
+
+// Resident blocks per SM of a float32 instance, as the card's occupancy
+// calculator gives them for its threads, registers and shared memory; -1
+// for an instance that does not exist, a negative cudaError_t if the query
+// fails.
+extern "C" long long pm2lat_flash_attention_blocks_per_sm(int bq, int bk, int hd) {
+#define PM2LAT_FA_OCC(BQ, BK, HD)                  \
+  if (bq == BQ && bk == BK && hd == HD)            \
+    return occupancy_ffma<BQ, BK, HD>();
+  PM2LAT_FA_OCC(64, 64, 16)
+  PM2LAT_FA_OCC(64, 64, 32)
+  PM2LAT_FA_OCC(64, 64, 64)
+  PM2LAT_FA_OCC(64, 64, 128)
+  PM2LAT_FA_OCC(128, 128, 16)
+  PM2LAT_FA_OCC(128, 128, 32)
+  PM2LAT_FA_OCC(128, 128, 64)
+  PM2LAT_FA_OCC(128, 128, 128)
+#undef PM2LAT_FA_OCC
   return -1;
 }
 

@@ -36,41 +36,110 @@
 // the tensor cores do 8x the needed work on zeros while the time is set
 // by B's bytes.  One code path instead of a second (mma.sync) kernel.
 //
-// float32 (mm_kernel): FFMA on the CUDA cores: the tables' "float32" is
-// true f32 and the tensor cores have no true-f32 mode (TF32 keeps 10
-// mantissa bits).  The A tile is stored
-// k-major with one column of padding so its transposing stores do not
-// conflict on banks.
+// float32 (mm_kernel): register-tiled FFMA on the CUDA cores.  The
+// tables' "float32" is true f32, and the tensor cores have no true-f32
+// mode (TF32 keeps 10 mantissa bits; 3xTF32 rounds otherwise), so the
+// bound is 67 TFLOP/s, 0.51 TFLOP/s an SM.  Each thread keeps a TM x TN
+// micro-tile of C in registers (8 x 8 at 256 threads for the 128-wide
+// tiles).  A warp is 4 x 8 threads: per 4 steps of K a thread reads TM
+// float4 of A (rows along K; the warp's 4 rows sit 36 floats apart, in
+// different banks) and 4 x TN/4 float4 of B from split column groups
+// (tx*4 and tx*4 + BN/2: 8 lanes cover 32 banks) for 4 TM TN FFMAs.  A
+// and B reach shared memory by cp.async, 16 bytes a thread (4 bytes where
+// K or N is no multiple of 4), zero-filled past the ragged edge, into a
+// double buffer of two slots of min(BK, 64) K columns: the next slot is
+// copied while the current one is multiplied, one barrier a slot.  For
+// BK <= 64 the two slots are two whole bm x bk + bk x bn stages
+// (mm_128x32x128, mm_64x64x64); for BK = 128 they are one stage walked in
+// two halves (mm_128x128x128: 132 KB; mm_8x128x128: 68 KB), so the
+// working set of each identity stays what its name says.  At M 8,
+// mm_8x128x128 (2 x 4 a thread, 128 threads) streams B's 128-column panel
+// at full width: 16 flops per 4-byte element of B, bound by B's bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "simt.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 // ------------------------------------------------------------- float32
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// One float32 instance: (BM/TM) x (BN/TN) threads own the BM x BN output
+// tile; thread (ty, tx) accumulates rows ty + TY*i (i < TM) and, in TN/4
+// groups of 4, columns g*(BN/CG) + tx*4 .. +3 in registers.  A warp is 4
+// rows (ty) by 8 columns (tx) of threads.
+template <int BM, int BK, int BN, int TM, int TN>
+struct MmFfma {
+  static constexpr int TX = BN / TN;               // threads along N
+  static constexpr int TY = BM / TM;               // threads along M
+  static constexpr int THREADS = TX * TY;
+  static constexpr int CG = TN / 4;                // column groups a thread owns
+  static constexpr int SK = BK < 64 ? BK : 64;     // K columns of one slot
+  static constexpr int AS = SK + 4;                // padded row of A in a slot
+  static constexpr int SLOT = BM * AS + SK * BN;   // floats: A [BM][AS], B [SK][BN]
+  static constexpr size_t SMEM = 4 * 2 * (size_t)SLOT;   // a double buffer
+  static_assert(TN % 4 == 0 && BM % TM == 0 && BN % TN == 0, "bad micro-tile");
+  static_assert(TX % 8 == 0 && TY % 4 == 0, "a warp is 4 x 8 threads");
+  static_assert(BK % SK == 0, "a stage is whole slots");
+};
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-template <int BM, int BK, int BN, int TM, int TN, typename T>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-mm_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
-          int M, int N, int K) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int TX = BN / TN;          // threads along N
-  constexpr int AS = BM + 1;           // padded stride of the k-major A tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);   // [BK][BM + 1]
-  T* Bs = As + BK * AS;                     // [BK][BN]
+// minBlocks 1: without it ptxas caps a 128-thread block below what the
+// kernel needs and spills.
+template <int BM, int BK, int BN, int TM, int TN>
+__global__ void __launch_bounds__(MmFfma<BM, BK, BN, TM, TN>::THREADS, 1)
+mm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+          float* __restrict__ C, int M, int N, int K, int vec) {
+  using S = MmFfma<BM, BK, BN, TM, TN>;
+  using namespace simt;
+  constexpr int SK = S::SK, AS = S::AS, NT = S::THREADS, CG = S::CG;
+  constexpr int TY = S::TY;
+  extern __shared__ __align__(16) float ring[];
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int lane_id = tid % 32, warp = tid / 32;
+  const int tx = (warp % (S::TX / 8)) * 8 + lane_id % 8;
+  const int ty = (warp / (S::TX / 8)) * 4 + lane_id / 8;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const T zero = from_f32<T>(0.f);
+  const int nsub = (K + SK - 1) / SK;
+
+  // Sub-chunk u (K columns u*SK ..) of A and B into ring slot `slot`:
+  // 16-byte copies when K and N are multiples of 4 (rows 16-byte aligned),
+  // else one float at a time.  Past M, N or K the copy writes zeros.
+  auto load = [&](int u, int slot) {
+    float* As = ring + slot * S::SLOT;
+    float* Bs = As + BM * AS;
+    const int k0 = u * SK;
+    if (vec) {
+      constexpr int CA = BM * SK / 4, CB = SK * BN / 4;
+#pragma unroll
+      for (int i = 0; i < (CA + NT - 1) / NT; ++i) {
+        const int e = tid + i * NT, r = e / (SK / 4), c = 4 * (e % (SK / 4));
+        const bool ok = row0 + r < M && k0 + c < K;
+        if (CA % NT == 0 || e < CA)
+          cp_async16(As + r * AS + c, ok ? A + (size_t)(row0 + r) * K + k0 + c : A, ok);
+      }
+#pragma unroll
+      for (int i = 0; i < (CB + NT - 1) / NT; ++i) {
+        const int e = tid + i * NT, r = e / (BN / 4), c = 4 * (e % (BN / 4));
+        const bool ok = k0 + r < K && col0 + c < N;
+        if (CB % NT == 0 || e < CB)
+          cp_async16(Bs + r * BN + c, ok ? B + (size_t)(k0 + r) * N + col0 + c : B, ok);
+      }
+    } else {
+      for (int e = tid; e < BM * SK; e += NT) {
+        const int r = e / SK, c = e % SK;
+        const bool ok = row0 + r < M && k0 + c < K;
+        cp_async4(As + r * AS + c, ok ? A + (size_t)(row0 + r) * K + k0 + c : A, ok);
+      }
+      for (int e = tid; e < SK * BN; e += NT) {
+        const int r = e / BN, c = e % BN;
+        const bool ok = k0 + r < K && col0 + c < N;
+        cp_async4(Bs + r * BN + c, ok ? B + (size_t)(k0 + r) * N + col0 + c : B, ok);
+      }
+    }
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -78,65 +147,83 @@ mm_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {      // coalesced along K
-      const int r = e / BK, c = e % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      As[c * AS + r] = (gr < M && gc < K) ? A[(size_t)gr * K + gc] : zero;
+  // A double buffer: sub-chunk t is read from slot t % 2 while the copy of
+  // sub-chunk t + 1 into the other slot is in flight.
+  if (nsub > 0) load(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < nsub; ++t) {
+    cp_async_wait<0>();                // this thread's copies of sub-chunk t
+    __syncthreads();                   // everyone's; and slot (t+1) % 2 is free
+    if (t + 1 < nsub) load(t + 1, (t + 1) % 2);
+    cp_async_commit();
+    const float* As = ring + (t % 2) * S::SLOT + ty * AS;
+    const float* Bs = ring + (t % 2) * S::SLOT + BM * AS + 4 * tx;
+    // Per 4 steps of K: TM float4 of A (a warp's 4 rows in different
+    // banks) and 4 x CG float4 of B (8 neighbouring lanes on 32 banks).
+#pragma unroll
+    for (int k = 0; k < SK; k += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = ld4(As + i * TY * AS + k);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float b[TN];
+#pragma unroll
+        for (int g = 0; g < CG; ++g) ldv<4>(Bs + (k + e) * BN + g * (BN / CG), b + 4 * g);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(lane(a[i], e), b[j], acc[i][j]);
+      }
     }
-    for (int e = tid; e < BK * BN; e += NT) {      // coalesced along N
-      const int r = e / BN, c = e % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      Bs[r * BN + c] = (gr < K && gc < N) ? B[(size_t)gr * N + gc] : zero;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = to_f32(As[kk * AS + ty * TM + i]);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = to_f32(Bs[kk * BN + tx * TN + j]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int gr = row0 + ty * TM + i;
+    const int gr = row0 + ty + TY * i;
     if (gr >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gc = col0 + tx * TN + j;
-      if (gc < N) C[(size_t)gr * N + gc] = from_f32<T>(acc[i][j]);
+    for (int g = 0; g < CG; ++g) {
+      const int gc = col0 + g * (BN / CG) + 4 * tx;
+      float* c = C + (size_t)gr * N + gc;
+      if (vec && gc < N) {
+        stv<4>(c, &acc[i][4 * g]);
+      } else if (!vec) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (gc + j < N) c[j] = acc[i][4 * g + j];
+      }
     }
   }
 }
 
 template <int BM, int BK, int BN, int TM, int TN>
-constexpr size_t ffma_smem() {
-  return sizeof(float) * (size_t)(BK * (BM + 1) + BK * BN);
+cudaError_t prepare_ffma() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      mm_kernel<BM, BK, BN, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)MmFfma<BM, BK, BN, TM, TN>::SMEM);
+  return attr;
 }
 
 template <int BM, int BK, int BN, int TM, int TN>
 cudaError_t launch_ffma(const void* a, const void* b, void* c, int M, int N, int K,
-                        cudaStream_t stream) {
-  static_assert(BM % TM == 0 && BN % TN == 0, "tile must divide the block");
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr size_t smem = ffma_smem<BM, BK, BN, TM, TN>();
-  auto kern = mm_kernel<BM, BK, BN, TM, TN, float>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                        int path, cudaStream_t stream) {
+  using S = MmFfma<BM, BK, BN, TM, TN>;
+  const cudaError_t attr = prepare_ffma<BM, BK, BN, TM, TN>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  kern<<<grid, NT, smem, stream>>>(static_cast<const float*>(a),
-                                   static_cast<const float*>(b),
-                                   static_cast<float*>(c), M, N, K);
+  mm_kernel<BM, BK, BN, TM, TN><<<grid, S::THREADS, S::SMEM, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), M, N, K, path == 0);
   return cudaGetLastError();
+}
+
+template <int BM, int BK, int BN, int TM, int TN>
+long long occupancy_ffma() {
+  using S = MmFfma<BM, BK, BN, TM, TN>;
+  const cudaError_t attr = prepare_ffma<BM, BK, BN, TM, TN>();
+  if (attr != cudaSuccess) return -(long long)attr;
+  return simt::blocks_per_sm(mm_kernel<BM, BK, BN, TM, TN>, S::THREADS, S::SMEM);
 }
 
 // ------------------------------------------------------------- bfloat16
@@ -316,9 +403,10 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N, in
 
 }  // namespace
 
-// dtype: 0 = float32 (contiguous operands; lda/ldb/path unused), 1 =
-// bfloat16.  lda, ldb: row strides of A and B in elements (C is
-// contiguous).  path (bf16): 0 = TMA, 1 = the consumers' own loads.
+// dtype: 0 = float32 (contiguous operands, 16-byte aligned; lda/ldb
+// unused), 1 = bfloat16.  lda, ldb: row strides of A and B in elements (C
+// is contiguous).  path: bf16 0 = TMA, 1 = the consumers' own loads;
+// float32 0 = 16-byte copies (K and N multiples of 4), 1 = 4-byte copies.
 // Returns a cudaError_t (0 = success); cudaErrorInvalidValue for a block
 // config that was not instantiated.
 extern "C" int pm2lat_matmul(int bm, int bk, int bn, int dtype, int path,
@@ -328,11 +416,11 @@ extern "C" int pm2lat_matmul(int bm, int bk, int bn, int dtype, int path,
   if (dtype == 0) {
 #define PM2LAT_MM_F32(BM, BK, BN, TM, TN) \
     if (bm == BM && bk == BK && bn == BN) \
-      return launch_ffma<BM, BK, BN, TM, TN>(a, b, c, M, N, K, s);
+      return launch_ffma<BM, BK, BN, TM, TN>(a, b, c, M, N, K, path, s);
     PM2LAT_MM_F32(128, 128, 128, 8, 8)
     PM2LAT_MM_F32(128, 32, 128, 8, 8)
     PM2LAT_MM_F32(64, 64, 64, 4, 4)
-    PM2LAT_MM_F32(8, 128, 128, 1, 4)
+    PM2LAT_MM_F32(8, 128, 128, 2, 4)
 #undef PM2LAT_MM_F32
   } else if (dtype == 1) {
 #define PM2LAT_MM_BF16(BM, BK, BN)        \
@@ -352,14 +440,30 @@ extern "C" int pm2lat_matmul(int bm, int bk, int bn, int dtype, int path,
 extern "C" long long pm2lat_matmul_smem(int bm, int bk, int bn, int dtype) {
 #define PM2LAT_MM_SMEM(BM, BK, BN, TM, TN)                              \
   if (bm == BM && bk == BK && bn == BN)                                 \
-    return dtype == 0 ? (long long)ffma_smem<BM, BK, BN, TM, TN>()      \
+    return dtype == 0 ? (long long)MmFfma<BM, BK, BN, TM, TN>::SMEM     \
                       : (long long)MmWgmma<BM, BK, BN>::SMEM;
   if (dtype != 0 && dtype != 1) return -1;
   PM2LAT_MM_SMEM(128, 128, 128, 8, 8)
   PM2LAT_MM_SMEM(128, 32, 128, 8, 8)
   PM2LAT_MM_SMEM(64, 64, 64, 4, 4)
-  PM2LAT_MM_SMEM(8, 128, 128, 1, 4)
+  PM2LAT_MM_SMEM(8, 128, 128, 2, 4)
 #undef PM2LAT_MM_SMEM
+  return -1;
+}
+
+// Resident blocks per SM of a float32 instance, as the card's occupancy
+// calculator gives them for its threads, registers and shared memory; -1
+// for an instance that does not exist, a negative cudaError_t if the
+// query fails.
+extern "C" long long pm2lat_matmul_blocks_per_sm(int bm, int bk, int bn) {
+#define PM2LAT_MM_OCC(BM, BK, BN, TM, TN) \
+  if (bm == BM && bk == BK && bn == BN)   \
+    return occupancy_ffma<BM, BK, BN, TM, TN>();
+  PM2LAT_MM_OCC(128, 128, 128, 8, 8)
+  PM2LAT_MM_OCC(128, 32, 128, 8, 8)
+  PM2LAT_MM_OCC(64, 64, 64, 4, 4)
+  PM2LAT_MM_OCC(8, 128, 128, 2, 4)
+#undef PM2LAT_MM_OCC
   return -1;
 }
 

@@ -10,10 +10,13 @@ clamped at 1e-30, every KV tile visited.  Like the matmul kernel, the
 
 The TPU family was re-derived for hd <= 128: a 512x512 f32 score tile is
 1 MiB, against 227 KB of shared memory a block.  Kept: ``fa_128x128``;
-added: ``fa_64x64``.  float32 runs FFMA on the CUDA cores, one query row
-per thread; bfloat16 runs ``wgmma`` on the tensor cores, one warpgroup per
-64 query rows, with K and V tiles fed by TMA through a two-stage ring and a
-second load path for tensors TMA cannot address (``load_path``).
+added: ``fa_64x64``.  float32 runs register-tiled FFMA on the CUDA cores:
+2·bq threads, each holding 8 query rows by bk/16 keys of S and the same
+rows by hd/16 columns of O in registers, with K and V tiles copied by
+cp.async so that each copy overlaps a product; bfloat16 runs ``wgmma`` on
+the tensor cores, one warpgroup per 64 query rows, with K and V tiles fed
+by TMA through a two-stage ring and a second load path for tensors TMA
+cannot address (``load_path``).  Both have ``threads`` threads a block.
 """
 from __future__ import annotations
 
@@ -38,15 +41,25 @@ class FlashConfig:
     def name(self) -> str:
         return f"fa_{self.bq}x{self.bk}"
 
+    @property
+    def threads(self) -> int:
+        """Threads of one block in either type: 2·bq (float32: a (bq/8) x 16
+        grid; bfloat16: one warpgroup per 64 query rows)."""
+        return 2 * self.bq
+
     def smem_bytes(self, hd: int, dtype=torch.bfloat16) -> int:
         """Dynamic shared memory of one block, as the C++ launches it.
-        float32: the K/V tile, the scaled Q tile and the score tile (padded
-        rows), all f32.  bfloat16: the Q tile and two stages of K and V
-        tiles, 1024 bytes to align them and 256 for the barriers
+        float32 (``FaFfma::SMEM``): the scaled Q tile [bq, hd], K [bk, hd + 4],
+        V [bk, hd] and Pᵀ [bk, bq + 4], all f32; where the four pass 227 KB,
+        Pᵀ shares K's buffer.  bfloat16: the Q tile and two stages of K and
+        V tiles, 1024 bytes to align them and 256 for the barriers
         (``FaWgmma::SMEM``)."""
         if dtype == torch.float32:
-            return 4 * (self.bk * hd + self.bq * (hd + 1)
-                        + self.bq * (self.bk + 1))
+            q, kk, v = self.bq * hd, self.bk * (hd + 4), self.bk * hd
+            p = self.bk * (self.bq + 4)
+            if 4 * (q + kk + v + p) <= SMEM_BUDGET:
+                return 4 * (q + kk + v + p)
+            return 4 * (q + max(kk, p) + v)
         return 1024 + 2 * hd * (self.bq + 2 * RING_STAGES * self.bk) + 256
 
 
@@ -61,7 +74,7 @@ RING_STAGES = 2       # K/V stages of the bf16 kernel's ring
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The ``path`` argument of the C entry: the bf16 kernel's two ways of
 # filling its shared-memory tiles; float32 has one kernel, FFMA, which
-# ignores it.
+# ignores it and takes dense tensors at 16-byte aligned addresses.
 LOAD_PATHS = {"tma": 0, "sync": 1, "ffma": 0}
 
 
@@ -74,8 +87,9 @@ def load_path(q, k, v) -> str:
 def _operands(q, k, v):
     """(q, k, v, path): the tensors as the kernel takes them and how it
     loads them.  The bf16 kernel takes strides, so only a strided head dim
-    (or float32, whose kernel takes dense tensors) is copied.  Path
-    ``"ffma"`` for float32 (the CUDA-core kernel); for bfloat16 ``"tma"``
+    is copied; float32's kernel takes dense tensors at 16-byte aligned
+    addresses, so any other is copied.  Path ``"ffma"`` for float32 (the
+    CUDA-core kernel); for bfloat16 ``"tma"``
     when every base address and every batch, sequence and head stride is a
     positive multiple of 16 bytes (what a TMA tensor map takes), else
     ``"sync"`` (the consumers' own loads into the same shared-memory
@@ -83,7 +97,8 @@ def _operands(q, k, v):
     the end and the row stride is heads * hd * 2 bytes whatever the
     length."""
     if q.dtype == torch.float32:
-        return q.contiguous(), k.contiguous(), v.contiguous(), "ffma"
+        q, k, v = (build.aligned16(t.contiguous()) for t in (q, k, v))
+        return q, k, v, "ffma"
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     tma = _tma_ok((q.data_ptr(), k.data_ptr(), v.data_ptr()),
                   q.stride()[:3] + k.stride()[:3] + v.stride()[:3])
@@ -171,6 +186,17 @@ def library_smem(config: FlashConfig, hd: int, dtype) -> int:
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     return fn(config.bq, config.bk, hd, DTYPES[dtype])
+
+
+def library_blocks_per_sm(config: FlashConfig, hd: int) -> int:
+    """Resident blocks per SM of the built float32 instance of ``config``
+    at head dim ``hd``, from the card's occupancy calculator (negative if
+    it has none)."""
+    lib = build.load("flash_attention")
+    fn = lib.pm2lat_flash_attention_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn(config.bq, config.bk, hd)
 
 
 def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,

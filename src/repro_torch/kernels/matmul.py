@@ -15,9 +15,12 @@ Kept: ``mm_128x128x128`` (128 KB of f32 tiles, 64 accumulators a thread at
 256 threads) and the skinny-M ``mm_8x128x128``; added: ``mm_128x32x128``
 (short K steps, a quarter of the shared memory) and ``mm_64x64x64``.
 
-Two kernels per identity: float32 runs FFMA on the CUDA cores (true f32,
-as the tables require); bfloat16 runs ``wgmma`` on the tensor cores, fed by
-TMA through a shared-memory ring (``stages`` deep), with a second load path
+Two kernels per identity: float32 runs register-tiled FFMA on the CUDA
+cores (true f32, as the tables require): each thread keeps a micro-tile of
+C in registers (``ffma_tile``), and cp.async copies A and B into a double
+buffer of sub-chunks of K (``ffma_slot`` columns), so that the next
+sub-chunk loads while the current one is multiplied.  bfloat16 runs ``wgmma`` on the tensor cores, fed by TMA
+through a shared-memory ring (``stages`` deep), with a second load path
 for operands TMA cannot address (``load_path``).
 """
 from __future__ import annotations
@@ -52,13 +55,35 @@ class MatmulConfig:
         # wgmma takes 64 rows: a skinny A tile is padded to 64 zero rows
         return 2 * (max(self.bm, 64) * self.bk + self.bk * self.bn)
 
+    @property
+    def ffma_tile(self) -> Tuple[int, int]:
+        """(rows, columns) of C each thread of the float32 kernel keeps in
+        registers (``PM2LAT_MM_F32``'s TM, TN)."""
+        return FFMA_TILES[(self.bm, self.bk, self.bn)]
+
+    @property
+    def ffma_slot(self) -> int:
+        """K columns of one slot of the float32 kernel's double buffer:
+        a bk step is walked in sub-chunks of at most 64 (``MmFfma::SK``)."""
+        return min(self.bk, 64)
+
+    @property
+    def ffma_threads(self) -> int:
+        """Threads of one float32 block: one per micro-tile of C."""
+        tm, tn = self.ffma_tile
+        return (self.bm // tm) * (self.bn // tn)
+
     def smem_bytes(self, dtype=torch.bfloat16) -> int:
         """Dynamic shared memory of one block, as the C++ launches it.
-        float32: the k-major A tile (one column of padding) and the B tile.
-        bfloat16: the ring of A and B stages, 1024 bytes to align it and
-        256 for its barriers (``MmWgmma::SMEM``)."""
+        float32: two slots of A [bm, sk] and B [sk, bn] in f32, sk =
+        ``ffma_slot``, each A row padded by 4 floats (``MmFfma::SMEM``).
+        That is two whole stages for bk <= 64 and one bk = 128 stage in
+        two halves.  bfloat16: the ring of A and
+        B stages, 1024 bytes to align it and 256 for its barriers
+        (``MmWgmma::SMEM``)."""
         if dtype == torch.float32:
-            return 4 * (self.bk * (self.bm + 1) + self.bk * self.bn)
+            sk = self.ffma_slot
+            return 4 * 2 * (self.bm * (sk + 4) + sk * self.bn)
         return 1024 + self.stages * self._stage_bytes() + 256
 
 
@@ -70,13 +95,20 @@ CONFIGS: Tuple[MatmulConfig, ...] = (
     MatmulConfig(8, 128, 128),      # skinny-M (decode-style GEMV-ish)
 )
 
+# The float32 kernel's micro-tile (rows, columns of C a thread) per
+# identity, as instantiated in csrc/matmul.cu: 8 x 8 at 256 threads for the
+# 128-wide tiles, 4 x 4 at 256 for mm_64x64x64, 2 x 4 at 128 for the
+# skinny mm_8x128x128.
+FFMA_TILES = {(128, 128, 128): (8, 8), (128, 32, 128): (8, 8),
+              (64, 64, 64): (4, 4), (8, 128, 128): (2, 4)}
 SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
 RING_BYTES = 196608   # 192 KB: what the bf16 ring may take of it
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The ``path`` argument of the C entry: the bf16 kernel's two ways of
-# filling its shared-memory tiles; float32 has one kernel, FFMA, which
-# ignores it.
-LOAD_PATHS = {"tma": 0, "sync": 1, "ffma": 0}
+# filling its shared-memory tiles (TMA, or the consumers' own copies), and
+# the float32 kernel's two copy widths (16 bytes, or 4 where K or N is no
+# multiple of 4 and the rows are not 16-byte aligned).
+LOAD_PATHS = {"tma": 0, "sync": 1, "ffma": 0, "ffma_scalar": 1}
 
 
 def load_path(a: torch.Tensor, b: torch.Tensor) -> str:
@@ -86,14 +118,18 @@ def load_path(a: torch.Tensor, b: torch.Tensor) -> str:
 
 def _operands(a, b):
     """(a, b, path): the operands as the kernel takes them and how it loads
-    them.  The kernel takes row strides, so only a strided last dim (or
-    float32, whose kernel takes dense operands) is copied.  Path ``"ffma"``
-    for float32 (the CUDA-core kernel); for bfloat16 ``"tma"`` when each
-    operand's base address and row stride are multiples of 16 bytes and its
-    rows do not overlap (what a TMA tensor map takes), else ``"sync"`` (the
-    consumers' own loads into the same shared-memory layout)."""
+    them.  The bf16 kernel takes row strides, so only a strided last dim is
+    copied; float32's kernel takes dense operands at 16-byte aligned
+    addresses, so any other is copied.  float32: ``"ffma"`` (16-byte
+    copies) when K and N are multiples of 4, else ``"ffma_scalar"`` (4-byte
+    copies).  bfloat16: ``"tma"`` when each operand's base address and row
+    stride are multiples of 16 bytes and its rows do not overlap (what a
+    TMA tensor map takes), else ``"sync"`` (the consumers' own loads into
+    the same shared-memory layout)."""
     if a.dtype == torch.float32:
-        return a.contiguous(), b.contiguous(), "ffma"
+        a, b = (build.aligned16(t.contiguous()) for t in (a, b))
+        return a, b, ("ffma" if (a.shape[1] | b.shape[1]) % 4 == 0
+                      else "ffma_scalar")
     if a.stride(1) != 1:
         a = a.contiguous()
     if b.stride(1) != 1:
@@ -155,6 +191,16 @@ def library_smem(config: MatmulConfig, dtype) -> int:
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
     return fn(config.bm, config.bk, config.bn, DTYPES[dtype])
+
+
+def library_blocks_per_sm(config: MatmulConfig) -> int:
+    """Resident blocks per SM of the built float32 instance of ``config``,
+    from the card's occupancy calculator (negative if it has none)."""
+    lib = build.load("matmul")
+    fn = lib.pm2lat_matmul_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn(config.bm, config.bk, config.bn)
 
 
 def matmul_kernel(a: torch.Tensor, b: torch.Tensor,

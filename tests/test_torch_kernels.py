@@ -386,3 +386,147 @@ def test_library_hash_covers_the_shared_header(tmp_path, monkeypatch):
     before = {n: build.library_path(n) for n in build.SOURCES}
     (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n")
     assert all(build.library_path(n) != before[n] for n in build.SOURCES)
+
+
+# ---------------------------------------------------------------------------
+# the float32 (register-tiled FFMA) instances: layout, occupancy, picks
+# ---------------------------------------------------------------------------
+
+# Dynamic shared memory of each float32 instance, from the layouts stated in
+# csrc/: matmul, a double buffer of A [bm, sk] + B [sk, bn] in f32, sk =
+# min(bk, 64), each A row padded by 4 floats; flash, Q [bq, hd] +
+# K [bk, hd + 4] + V [bk, hd] + P^T [bk, bq + 4] in f32, P^T over K where
+# the four pass 227 KB (fa_128x128 at hd 128).
+F32_MM_SMEM = {"mm_128x128x128": 4 * 2 * (128 * 68 + 64 * 128),
+               "mm_128x32x128": 4 * 2 * (128 * 36 + 32 * 128),
+               "mm_64x64x64": 4 * 2 * (64 * 68 + 64 * 64),
+               "mm_8x128x128": 4 * 2 * (8 * 68 + 64 * 128)}
+F32_FA_SMEM = {("fa_64x64", 16): 4 * (64 * 16 + 64 * 20 + 64 * 16 + 64 * 68),
+               ("fa_64x64", 32): 4 * (64 * 32 + 64 * 36 + 64 * 32 + 64 * 68),
+               ("fa_64x64", 64): 4 * (64 * 64 + 64 * 68 + 64 * 64 + 64 * 68),
+               ("fa_64x64", 128): 4 * (64 * 128 + 64 * 132 + 64 * 128
+                                       + 64 * 68),
+               ("fa_128x128", 16): 4 * (128 * 16 + 128 * 20 + 128 * 16
+                                        + 128 * 132),
+               ("fa_128x128", 32): 4 * (128 * 32 + 128 * 36 + 128 * 32
+                                        + 128 * 132),
+               ("fa_128x128", 64): 4 * (128 * 64 + 128 * 68 + 128 * 64
+                                        + 128 * 132),
+               ("fa_128x128", 128): 4 * (128 * 128 + 128 * 132 + 128 * 128)}
+
+
+@pytest.mark.parametrize("cfg", mk.CONFIGS, ids=lambda c: c.name)
+def test_float32_matmul_smem_is_the_ring_layout(cfg):
+    got = cfg.smem_bytes(torch.float32)
+    assert got == F32_MM_SMEM[cfg.name] <= mk.SMEM_BUDGET
+    # two slots of min(bk, 64) K columns, each A row padded by 4 floats:
+    # two whole stages for bk <= 64, one stage in two halves for bk = 128
+    sk = cfg.ffma_slot
+    assert sk == min(cfg.bk, 64) and 2 * sk in (cfg.bk, 2 * cfg.bk)
+    assert got - 4 * 2 * 4 * cfg.bm == 4 * 2 * sk * (cfg.bm + cfg.bn)
+
+
+@pytest.mark.parametrize("cfg,hd", [(c, hd) for c in fk.CONFIGS
+                                    for hd in fk.HEAD_DIMS],
+                         ids=lambda x: getattr(x, "name", str(x)))
+def test_float32_flash_smem_is_the_tile_layout(cfg, hd):
+    assert cfg.smem_bytes(hd, torch.float32) == F32_FA_SMEM[(cfg.name, hd)] \
+        <= fk.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("cfg,hd", [(c, hd) for c in fk.CONFIGS
+                                    for hd in fk.HEAD_DIMS if hd <= 64],
+                         ids=lambda x: getattr(x, "name", str(x)))
+def test_float32_flash_holds_eight_warps_an_sm(cfg, hd):
+    """At the most registers a thread may have (255), every float32 flash
+    instance at hd <= 64 keeps 8 warps or more resident on an SM."""
+    blocks = build.blocks_per_sm(cfg.threads, 255,
+                                 cfg.smem_bytes(hd, torch.float32))
+    assert blocks * cfg.threads // 32 >= 8
+
+
+@pytest.mark.parametrize("threads,regs,smem,want", [
+    (256, 255, 0, 1),          # registers: 8 warps of 8192
+    (256, 128, 0, 2),          # 4 warps a sub-partition
+    (256, 64, 0, 4),
+    (128, 200, 0, 2),          # 6400 a warp: 2 warps a sub-partition
+    (128, 64, 67584, 3),       # shared memory: 3 x (67584 + 1024)
+    (256, 100, 131072, 1),
+    (32, 16, 0, 32),           # the block limit
+    (1024, 32, 0, 2),          # the warp limit
+    (1024, 128, 0, 0),         # 128 KB of registers: does not fit
+])
+def test_blocks_per_sm_follows_the_occupancy_rule(threads, regs, smem, want):
+    assert build.blocks_per_sm(threads, regs, smem) == want
+
+
+def test_float32_instances_match_the_python_description():
+    """csrc/matmul.cu instantiates each float32 identity with the micro-tile
+    ``ffma_tile`` names, and both sources' occupancy getters answer for
+    exactly the float32 instances."""
+    mm = _instances("matmul", "PM2LAT_MM_F32")
+    assert {t[:3]: t[3:] for t in mm} == {
+        (c.bm, c.bk, c.bn): c.ffma_tile for c in mk.CONFIGS}
+    assert sorted(_instances("matmul", "PM2LAT_MM_OCC")) == sorted(mm)
+    assert sorted(_instances("matmul", "PM2LAT_MM_SMEM")) == sorted(mm)
+    assert sorted(_instances("flash_attention", "PM2LAT_FA_OCC")) == sorted(
+        _instances("flash_attention", "PM2LAT_FA_F32"))
+    for c in mk.CONFIGS:
+        tm, tn = c.ffma_tile
+        assert tn % 4 == 0 and c.ffma_threads == (c.bm // tm) * (c.bn // tn)
+        assert c.ffma_threads % 32 == 0
+
+
+# select_config's float32 picks, as the kernels before the register-tiled
+# redesign gave them: the redesign changes no pick.
+F32_MM_PICKS = {
+    (1, 64, 32): "mm_8x128x128", (1, 4224, 1408): "mm_8x128x128",
+    (8, 640, 32): "mm_8x128x128", (8, 4224, 1408): "mm_8x128x128",
+    (100, 64, 32): "mm_128x32x128", (100, 64, 1408): "mm_64x64x64",
+    (100, 640, 1408): "mm_8x128x128", (100, 4224, 32): "mm_128x32x128",
+    (768, 64, 1408): "mm_64x64x64", (768, 640, 32): "mm_128x32x128",
+    (768, 640, 1408): "mm_128x128x128", (768, 4224, 1408): "mm_128x128x128",
+    (2048, 64, 1408): "mm_64x64x64", (2048, 640, 32): "mm_128x32x128",
+    (2048, 4224, 1408): "mm_128x128x128", (2048, 4224, 4096): "mm_128x128x128",
+}
+
+
+@pytest.mark.parametrize("shape,want", sorted(F32_MM_PICKS.items()))
+def test_float32_matmul_picks_are_pinned(shape, want):
+    assert mk.select_config(*shape, torch.float32).name == want
+
+
+@pytest.mark.parametrize("s,hd,want", [
+    (512, 64, "fa_128x128"), (512, 128, "fa_128x128"), (128, 16, "fa_128x128"),
+    (4096, 32, "fa_128x128"), (200, 64, "fa_64x64"), (64, 128, "fa_64x64")])
+def test_float32_flash_picks_are_pinned(s, hd, want):
+    assert fk.select_config(s, s, hd, torch.float32).name == want
+
+
+@pytest.mark.parametrize("case,want", [
+    ("aligned", "ffma"), ("odd_k", "ffma_scalar"), ("odd_n", "ffma_scalar"),
+    ("offset_a", "ffma"), ("slice_b", "ffma")])
+def test_float32_matmul_operands_are_dense_and_aligned(case, want):
+    """The float32 kernel takes dense operands at 16-byte aligned addresses
+    (others are copied) and copies 16 bytes at a time where K and N are
+    multiples of 4."""
+    M, K, N = 64, 96, 80
+    K, N = {"odd_k": (97, N), "odd_n": (K, 81)}.get(case, (K, N))
+    a, b = torch.zeros(M, K), torch.zeros(K, N)
+    if case == "offset_a":
+        a = _offset((M, K), torch.float32)
+    if case == "slice_b":
+        b = torch.zeros(K, N + 1)[:, 1:]
+    a2, b2, path = mk._operands(a, b)
+    assert path == want and mk.load_path(a, b) == want
+    for t in (a2, b2):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def test_float32_flash_operands_are_dense_and_aligned():
+    q = _offset((1, 64, 2, 32), torch.float32)
+    kv = torch.zeros(1, 64, 4, 32)[:, :, 1:3]
+    out = fk._operands(q, kv, kv)
+    assert out[3] == "ffma"
+    for t in out[:3]:
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
