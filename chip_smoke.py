@@ -7,8 +7,12 @@ on the card (calibration), turn the timings into throughput tables and the
 memory-bound regression, predict qwen2-0.5b at full width, and measure the
 same forward pass on the same card.  Before that it builds the hand-written
 CUDA kernels from ``src/repro_torch/kernels/csrc`` and holds each against its
-plain PyTorch version on the card.  Every phase prints one JSON line; the
-full record (and the calibrated store) goes to ``chiprun_out/``.
+plain PyTorch version on the card.  Then the decode path: prefill and one
+decode step of qwen2-0.5b at batch 8 and two contexts, eager and as a
+replayed CUDA graph, measured and predicted; and the serving path: the
+``serve`` launcher's engine over 16 requests in two waves.  Every phase
+prints one JSON line; the full record (and the calibrated store) goes to
+``chiprun_out/``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failing phase, a
 missing card, or a checkout without ``src/repro_torch`` (the import fails)
@@ -35,6 +39,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
+from repro_torch.core import opgraph as og  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core.device import H100_SXM  # noqa: E402
 from repro_torch.core.oracle import PROVIDER_PALLAS  # noqa: E402
@@ -42,7 +47,9 @@ from repro_torch.core.predictor import PM2Lat  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.serving.engine import DecodeGraph  # noqa: E402
 
 MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
@@ -63,6 +70,18 @@ MM_FULL = (2048, 4224, 4096)  # 528 tiles of 128 x 128: 4 full waves on 132 SMs
 MM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-2, 5e-2)}   # (atol/sqrt(K), rtol)
 FA_TOL = {"float32": (2e-5, 0.0),                              # (atol, rtol)
           "bfloat16": ("2^-8 * flash_attention_plain(q, k, |v|)", 2 ** -8)}
+
+# The decode phase: batch 8 at two contexts; the decode step's logits
+# against the last position of a forward over the same ctx tokens, as
+# max|d| / max|logits|.  float32 is true f32 on both sides (TF32 off), so
+# only the order of f32 sums differs; bf16 rounds every projection's output
+# and the cache, in other places on the two paths.
+DECODE_CTXS = (512, 2048)
+DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# The serve phase: the launcher's flags; two waves of 8 prompts of 512.
+SERVE_ARGS = ["--arch", MODEL, "--requests", "16", "--prompt-len", "512",
+              "--max-new", "32", "--max-batch", "8", "--temperature", "0",
+              "--compute-dtype", "bfloat16", "--seed", "0"]
 
 
 def emit(phase: str, **fields):
@@ -294,12 +313,23 @@ def flash_tol(q, k, v, cfg, dname, kw):
             FA_TOL[dname][1])
 
 
+def decode_path_cases():
+    """The flash calls of the decode and serve paths, qwen2-0.5b's causal
+    attention at batch 8: each ctx's prefill of ctx - 1 tokens and forward
+    over ctx (ragged where ctx - 1 is no multiple of a tile); the serve
+    path's prefill of 512 is the forward at ctx 512."""
+    c = cfg_registry.get(MODEL)
+    return [(BATCH, S, S, c.n_heads, c.n_kv_heads, c.head_dim, True, None,
+             None) for ctx in DECODE_CTXS for S in (ctx - 1, ctx)]
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), both configs; in
     bf16 every (config, hd) goes through TMA, and strided views (TMA) and
     tensors 2 bytes off alignment or with an odd row stride (the second
-    load path) are added."""
+    load path) are added; then the decode and serve paths' shapes
+    (``decode_path_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -317,7 +347,7 @@ def check_flash(dtypes):
         (1, 150, 201, 4, 2, 64, True, None, "offset"),   # 2 bytes off
         (1, 129, 129, 2, 1, 128, False, None, "offset"),
         (1, 100, 100, 2, 2, 32, True, None, "odd_row"),  # odd sequence stride
-    ]
+    ] + decode_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -533,33 +563,241 @@ def device_rows(prof):
     return rows
 
 
-def forward_trace(model, tokens):
-    """Where one forward's time goes.  Without the profiler: the host's
-    time to enqueue it and the device's span from its first to its last
-    kernel (CUDA events); where the two are close, the host sets the pace.
-    Under ``torch.profiler``: the device's busy time, its idle share of
-    that span, and the 10 kernels that take the most time."""
+# cuBLAS/cuBLASLt GEMM and GEMV kernels (and their split-K reductions)
+# by name, for the share of a trace's busy time that the matmul rows price
+GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma|splitKreduce", re.IGNORECASE)
+
+
+def forward_trace(fn, *args):
+    """Where one call's time goes (a forward, a decode step).  Without the
+    profiler: the host's time to enqueue it and the device's span from its
+    first to its last kernel (CUDA events); where the two are close, the
+    host sets the pace.  Under ``torch.profiler``: the device's busy time,
+    the part of it in cuBLAS GEMM/GEMV kernels (``GEMM_KERNEL``), its idle
+    share of that span, and the 10 kernels that take the most time."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    model(tokens)
+    fn(*args)
     end.record()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     span = start.elapsed_time(end)
     with profile_cuda() as prof:
-        model(tokens)
+        fn(*args)
         torch.cuda.synchronize()
     rows = device_rows(prof)
     busy = sum(t for _, t in rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1][1])[:10]
     return {"host_enqueue_ms": host_ms, "span_ms": span,
             "device_busy_ms": busy,
+            "gemm_ms": sum(t for name, (_, t) in rows.items()
+                           if GEMM_KERNEL.search(name)),
             "idle_share": (1 - busy / span) if busy else None,
             "kernel_launches": sum(c for c, _ in rows.values()),
             "top10": [[name[:90], c, t] for name, (c, t) in top]}
+
+
+def hand_launches():
+    return {"matmul": mk.matmul_kernel.launches,
+            "flash_attention": fk.flash_attention_kernel.launches}
+
+
+def reset_launches():
+    mk.matmul_kernel.launches = 0
+    fk.flash_attention_kernel.launches = 0
+
+
+def phase_decode(store):
+    """qwen2-0.5b at batch 8, float32 then bf16, ctx in DECODE_CTXS: prefill
+    ctx - 1 random tokens with ``max_len = ctx`` (so that the step attends
+    over the W = ctx slots the predictor prices), then one decode step,
+    eager and as a replayed CUDA graph.  Fails unless the cache holds
+    ``kv_cache_bytes``, the step's logits match the last position of a
+    forward over the same ctx tokens within DECODE_TOL, the replay gives
+    the eager step's logits bit for bit, and no hand kernel launches inside
+    the step, and unless the logits check rejects a step planted one slot
+    early.  Returns the records and the bytes floors."""
+    cfg0 = cfg_registry.get(MODEL)
+    pm = PM2Lat(store, store.meta["device"])
+    model = model_registry.build(dataclasses.replace(
+        cfg0, compute_dtype="float32"), device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    records, floors = [], []
+    for dname in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        model.cfg = cfg
+        if dname == "bfloat16":
+            model.cast_weights_(torch.bfloat16)
+        weight_bytes = sum(p.nbytes for p in model.parameters())
+        for ctx in DECODE_CTXS:
+            tokens = torch.randint(0, cfg.vocab_size, (BATCH, ctx),
+                                   generator=gen, device="cuda")
+            with torch.no_grad():
+                rec = decode_record(model, pm, cfg, tokens)
+            kv = og.kv_cache_bytes(cfg, BATCH, ctx, dname)
+            floor = (weight_bytes + kv) / H100_SXM.hbm_bw * 1e3
+            floors.append({"dtype": dname, "batch": BATCH, "ctx": ctx,
+                           "weight_bytes": weight_bytes, "kv_read_bytes": kv,
+                           "floor_ms": floor, "graph_ms": rec["graph_ms"],
+                           "floor_share": floor / rec["graph_ms"]})
+            emit("decode", **rec)
+            records.append(rec)
+            bad = [k for k in ("cache_bytes_ok", "logits_ok", "graph_bitwise",
+                               "planted_fault_caught") if not rec[k]]
+            if bad or rec["hand_launches_in_step"]:
+                raise AssertionError(f"decode {dname} ctx {ctx}: failed {bad}, "
+                                     f"hand launches in the step "
+                                     f"{rec['hand_launches_in_step']}")
+    emit("decode_floors", rows=floors)
+    return records, floors
+
+
+def decode_record(model, pm, cfg, tokens):
+    dname = cfg.compute_dtype
+    B, ctx = tokens.shape
+    logits = model(tokens)
+    want = logits[:, -1].float()
+    del logits
+    _, cache = model.prefill(tokens[:, :-1], max_len=ctx)
+    kv = og.kv_cache_bytes(cfg, B, ctx, dname)
+    tok = tokens[:, -1].contiguous()
+    start = cache.clone()
+    before = hand_launches()
+    eager, _ = model.decode_step(tok, cache)
+    # a planted fault: the same step one slot early (rope and cache write
+    # at ctx - 2), which the logits check must catch
+    fault = start.clone()
+    fault.pos.fill_(ctx - 2)
+    wrong, _ = model.decode_step(tok, fault)
+    del fault
+    graph = DecodeGraph(model, start)
+    replay = graph.load(start)(tok).clone()
+    torch.cuda.synchronize()
+    rel = lambda x: float((x.float() - want).abs().max() / want.abs().max())
+    err, fault_err = rel(eager), rel(wrong)
+
+    def eager_step():
+        cache.pos.fill_(ctx - 1)
+        return model.decode_step(tok, cache)
+
+    def graph_step():
+        graph.cache.pos.fill_(ctx - 1)
+        return graph(tok)
+
+    eager_s = profiler.measure(eager_step)
+    graph_s = profiler.measure(graph_step)
+    eager_trace = forward_trace(eager_step)
+    graph_trace = forward_trace(graph_step)
+    in_step = {k: v - before[k] for k, v in hand_launches().items() if v
+               != before[k]}
+    total, rows = pm.predict_ops(og.enumerate_decode_ops(cfg, B, ctx,
+                                                         dtype=dname))
+    top = sorted(rows, key=lambda r: -r.seconds)[:5]
+    by_kind = {}
+    for r in rows:
+        by_kind[r.kind] = by_kind.get(r.kind, 0.0) + r.seconds * 1e3
+    return {"dtype": dname, "batch": B, "ctx": ctx,
+            "capacity": cache.capacity,
+            "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
+            "cache_bytes_ok": cache.nbytes == kv,
+            "logits_rel_err": err, "logits_tol": DECODE_TOL[dname],
+            "logits_ok": err <= DECODE_TOL[dname],
+            "planted_fault_rel_err": fault_err,
+            "planted_fault_caught": fault_err > DECODE_TOL[dname],
+            "graph_bitwise": bool(torch.equal(eager, replay)),
+            "hand_launches_in_step": in_step,
+            "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
+            "predicted_ms": total * 1e3, "predicted_ms_by_kind": by_kind,
+            "err_pct": 100 * abs(total - graph_s) / graph_s,
+            "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3]
+                               for r in top],
+            "eager_trace": eager_trace, "graph_trace": graph_trace}
+
+
+def phase_serve(store):
+    """The ``serve`` launcher's engine (SERVE_ARGS): 16 requests of 512
+    tokens, 32 new each, in two waves of 8, greedy, bf16.  Fails unless
+    every request ends with 32 tokens, 512 come out, the flash kernel
+    launched once a layer a wave and every served token equals the eager
+    steps' (``check_served``, run after the path's launch counts are read;
+    they are returned with the record).  Prices the prompt as the JAX
+    package does (``predict_model`` at (8, 512)) and the decode steps over
+    the contexts they ran at (513-543)."""
+    args = serve_launcher.parse_args(SERVE_ARGS)
+    cfg = dataclasses.replace(cfg_registry.get(MODEL),
+                              compute_dtype=args.compute_dtype)
+    engine, done = serve_launcher.serve(args)
+    launches = hand_launches()
+    flash = launches["flash_attention"]
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    pm = PM2Lat(store, store.meta["device"])
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    waves = [done[i:i + args.max_batch]
+             for i in range(0, len(done), args.max_batch)]
+    st = engine.stats
+    rec = {**out, "requests": len(done), "prefills": st.prefills,
+           "out_tokens_each": sorted({len(r.out_tokens) for r in done}),
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+           "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+           "wave_ttft_ms": [(w[0].t_first_token - w[0].t_submit) * 1e3
+                            for w in waves],
+           "wave_tpot_ms": [float(np.mean([(r.t_done - r.t_first_token)
+                                           / (len(r.out_tokens) - 1)
+                                           for r in w])) * 1e3 for w in waves],
+           "flash_launches": flash, "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "predicted_decode_ctx": [ctxs.start, ctxs.stop - 1],
+           "wall_s": engine.wall_s}
+    emit("serve", **rec)
+    want_flash = cfg.n_layers * len(waves)
+    if (rec["out_tokens_each"] != [args.max_new]
+            or st.tokens_out != args.requests * args.max_new
+            or flash != want_flash or served["mismatched"]):
+        raise AssertionError(f"serve: tokens each {rec['out_tokens_each']}, "
+                             f"out {st.tokens_out}, flash launches {flash} "
+                             f"(expected {want_flash}), requests unlike the "
+                             f"eager steps {served['mismatched']}")
+    return rec, launches
+
+
+def check_served(engine, done):
+    """What the engine served (its CUDA graphs, reloaded for the second
+    wave, and its argmax on the card) against an eager ``prefill`` and
+    ``decode_step`` of each wave's prompts, greedy, on the card: the rids
+    whose tokens differ, and each one's first differing step."""
+    model, vocab = engine.model, engine.model.cfg.vocab_size
+    mismatched = {}
+    with torch.no_grad():
+        for i in range(0, len(done), engine.max_batch):
+            wave = done[i:i + engine.max_batch]
+            if len({len(r.prompt) for r in wave}) != 1:
+                raise AssertionError("check_served needs one prompt length "
+                                     "a wave (no left padding)")
+            toks = torch.from_numpy(np.stack([r.prompt for r in wave]))
+            logits, cache = model.prefill(toks.long().cuda(),
+                                          max_len=engine.max_len)
+            nxt = logits[:, :vocab].argmax(-1)
+            out = [nxt]
+            for _ in range(wave[0].max_new_tokens - 1):
+                logits, _ = model.decode_step(nxt, cache)
+                nxt = logits[:, :vocab].argmax(-1)
+                out.append(nxt)
+            want = torch.stack(out, 1).cpu().numpy()
+            for r, w in zip(wave, want):
+                diff = np.flatnonzero(np.asarray(r.out_tokens) != w)
+                if diff.size:
+                    mismatched[r.rid] = int(diff[0])
+    return {"requests": len(done), "mismatched": mismatched}
 
 
 def kernel_lines(launches, mm_pick):
@@ -795,29 +1033,44 @@ def main() -> int:
                      "flash_attention (atol, rtol)": FA_TOL})
 
     # --- the main path: counts from 0, read right after ---
-    mk.matmul_kernel.launches = 0
-    fk.flash_attention_kernel.launches = 0
+    reset_launches()
     store, record["calibrate"] = phase_calibrate()
     table6 = phase_table6(store)
     model = phase_model(store)
-    launches = {"matmul": mk.matmul_kernel.launches,
-                "flash_attention": fk.flash_attention_kernel.launches}
+    launches = hand_launches()
     emit("main_path_launches", **launches)
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
 
+    # --- the decode and serving paths, each with counts from 0 ---
+    reset_launches()
+    decode, decode_floors = phase_decode(store)
+    by_path = {"main": launches, "decode": hand_launches()}
+    reset_launches()
+    serving, by_path["serve"] = phase_serve(store)
+    emit("path_launches", **by_path)
+    for path in ("decode", "serve"):
+        if by_path[path]["flash_attention"] == 0:
+            raise AssertionError(f"the {path} path never launched "
+                                 f"flash_attention")
+
     m, n, _ = MM_SHAPE
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
         "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
     kernels = kernel_lines(launches, mm_pick)
+    for line in kernels:
+        line["launches_by_path"] = {p: n[line["name"]]
+                                    for p, n in by_path.items()}
     floors = matmul_floors(next(x for x in kernels
                                 if x["name"] == "matmul")["float32"])
     emit("matmul_floors", rows=floors)
-    record.update(table6=table6, model=model, kernels=kernels,
+    record.update(table6=table6, model=model, decode=decode,
+                  decode_floors=decode_floors, serve=serving, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    emit("seconds", total=record["seconds"])
 
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

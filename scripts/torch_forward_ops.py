@@ -64,7 +64,8 @@ def rope_ops(x, positions, theta: float):
 
 def attention_ops(self, x, *, causal=True, window=None, compute_dtype=None,
                   rope=None):
-    """``Attention.forward`` with ``rope_ops`` (``rope`` is not used)."""
+    """``Attention.forward`` with ``rope_ops`` (``rope`` is not used):
+    (out, (k, v))."""
     cfg = self.cfg
     B, S, _ = x.shape
     q = self.wq(x, compute_dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -74,7 +75,7 @@ def attention_ops(self, x, *, causal=True, window=None, compute_dtype=None,
     q = rope_ops(q, positions, cfg.rope_theta)
     k = rope_ops(k, positions, cfg.rope_theta)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    return self.wo(o.reshape(B, S, -1), compute_dtype)
+    return self.wo(o.reshape(B, S, -1), compute_dtype), (k, v)
 
 
 @contextlib.contextmanager

@@ -6,7 +6,8 @@ matmul-family op with its (batch, M, N, K), every attention call with its
 geometry, every memory-bound op as a torch snippet whose proxy features come
 from ``core/cost.py`` (cached by shape).  The enumeration is the JAX
 package's, op for op; only the snippets and their features are torch.
-Decode and parallel enumerations come with later slices.
+A decode step (one token a request against a KV cache) is enumerated too;
+the parallel enumerations come with the collectives slice.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ import functools
 from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import base as C
-from repro_torch.core.collectives import CollectiveOp
+from repro_torch.core.collectives import CollectiveOp, dtype_bytes
 from repro_torch.core.cost import cost_of
 from repro_torch.core.memory_model import assoc_scan, seq_scan
 from repro_torch.models.layers import is_gated, pad_vocab
@@ -64,7 +66,10 @@ class AttentionOp:
     dtype: str = "float32"
     kind: str = "attention"
     # execution phase: 'prefill' attention is compute-bound and priced by
-    # the throughput tables; 'decode' pricing comes with the decode slice.
+    # the throughput tables; 'decode' attention (sq == 1, KV-cache read)
+    # is memory-bound and priced by the memory model over its analytic
+    # byte/flop features.  ``skv`` may be a numpy array (ctx swept
+    # symbolically).
     phase: str = PREFILL
 
     @property
@@ -111,8 +116,7 @@ class OpNode:
 class OpGraph:
     """Dependency/stream-aware op IR.  Nodes are appended in topological
     order (every dep index is smaller than the node's own index).  ``phase``
-    tags which serving phase the graph models (only ``'prefill'`` is
-    enumerated in this slice)."""
+    tags which serving phase the graph models."""
     nodes: List[OpNode] = dataclasses.field(default_factory=list)
     phase: str = PREFILL
 
@@ -190,6 +194,70 @@ SNIPPETS: Dict[str, Callable] = {
                                + 1e-8) + 0.01 * x),
     "sgd_update": lambda x: x - 0.01 * x,
 }
+
+
+def kv_read_bytes(op: AttentionOp) -> float:
+    """KV-cache read traffic of one attention op: the K and V blocks the
+    kernel streams from HBM, ``2 · batch · kv_heads · skv · hd`` elements.
+    Scales with ``kv_heads`` (NOT ``heads``): grouped-query attention cuts
+    decode-step memory traffic by the GQA ratio while the flops (which
+    scale with ``heads``) stay put.  Elementwise when ``skv`` is an
+    array."""
+    return (2.0 * op.batch * op.kv_heads * op.skv * op.hd
+            * dtype_bytes(op.dtype) * op.count)
+
+
+def decode_attention_features(op: AttentionOp) -> Dict[str, float]:
+    """Proxy features pricing a DECODE-phase attention op through the
+    memory model, as the memory-bound snippets' features do:
+
+    * ``bytes``: the KV-cache read (``kv_read_bytes``) plus the query
+      read and output write (``2 · batch · heads · sq · hd`` elements);
+    * ``flops``: the op's own QK^T + PV flops;
+    * ``transcendentals``: the softmax exponentials, one per score.
+
+    At sq = 1 the flops term is tiny and the KV bytes dominate: the
+    memory-bound regime the throughput tables (built around compute-bound
+    prefill kernels) cannot represent."""
+    esz = dtype_bytes(op.dtype)
+    qo = 2.0 * op.batch * op.heads * op.sq * op.hd * esz * op.count
+    return {"bytes": kv_read_bytes(op) + qo,
+            "flops": op.flops,
+            "transcendentals": (1.0 * op.batch * op.heads * op.sq * op.skv
+                                * op.count)}
+
+
+def kv_cache_bytes(cfg: C.ModelConfig, batch: int, ctx: int,
+                   dtype: Optional[str] = None) -> float:
+    """Bytes of per-request serving state at context length ``ctx``:
+    K + V cache for every attention layer (``2 · batch · kv_heads · ctx ·
+    hd`` elements each; sliding-window layers cap ``ctx`` at the window,
+    cross-attention adds its fixed encoder-context K/V), plus the O(1)
+    recurrent state of RG-LRU/xLSTM blocks."""
+    dt = dtype or "float32"
+    esz = dtype_bytes(dt)
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    total = 0.0
+    for kind in cfg.layer_kinds:
+        if kind in (C.ATTN, C.ENC_ATTN):
+            total += 2.0 * batch * hkv * ctx * hd * esz
+        elif kind == C.LOCAL_ATTN:
+            total += 2.0 * batch * hkv * min(ctx, cfg.sliding_window) * hd * esz
+        elif kind == C.CROSS_ATTN:
+            Lx = cfg.cross_attn_context_len or (
+                cfg.encoder.n_frames if cfg.encoder else 0)
+            total += 2.0 * batch * hkv * (ctx + Lx) * hd * esz
+        elif kind == C.RGLRU:
+            dl = cfg.lru_dim or d
+            total += batch * (dl + 4 * dl) * esz      # h state + conv window
+        elif kind == C.MLSTM:
+            di = 2 * d
+            hdm = di // cfg.n_heads
+            # matrix memory C (hdm x hdm per head) + normalizer + conv window
+            total += batch * (cfg.n_heads * hdm * hdm + di + 4 * di) * esz
+        elif kind == C.SLSTM:
+            total += batch * 2 * 4 * d * esz          # c/h gate states
+    return total
 
 
 @functools.lru_cache(maxsize=4096)
@@ -403,3 +471,157 @@ def enumerate_ops(cfg: C.ModelConfig, batch: int, seq: int,
     return enumerate_graph(cfg, batch, seq, dtype=dtype).ops()
 
 
+
+
+# ---------------------------------------------------------------------------
+# Decode-phase enumeration (serving)
+# ---------------------------------------------------------------------------
+
+def _clamp_ctx(ctx, window: Optional[int]):
+    """min(ctx, window), elementwise when ``ctx`` is an array."""
+    if window is None:
+        return ctx
+    if isinstance(ctx, np.ndarray):
+        return np.minimum(ctx, window)
+    return min(int(ctx), int(window))
+
+
+def _decode_segments(cfg: C.ModelConfig, batch: int, ctx,
+                     dtype: Optional[str] = None
+                     ) -> List[Tuple[str, List[Op]]]:
+    """One decode STEP for ``batch`` in-flight requests, each attending a
+    KV cache of ``ctx`` entries (the step's own K/V is appended first, so
+    ``ctx`` counts it): the phase-aware twin of ``_forward_segments``.
+
+    What changes against prefill (sq == seq):
+
+    * every token-indexed matmul goes skinny: m = batch (one token per
+      request), the memory-bound GEMV regime;
+    * attention becomes a KV-cache READ: sq = 1, skv = ctx (window-clamped
+      for sliding-window layers, the fixed encoder context for
+      cross-attention), tagged ``phase='decode'`` so the predictor prices
+      it memory-bound; a ``kv_append`` MemoryOp writes the step's K/V;
+    * recurrent blocks advance their O(1) state, one gate/scan step whose
+      cost is constant in ctx;
+    * the encoder segment disappears (it runs once, at prefill).
+
+    ``ctx`` may be a numpy array: only the decode attention's skv/flops
+    become arrays (everything else is ctx-independent)."""
+    dt = dtype or "float32"
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    T = batch                               # sq = 1: one token per request
+    Vp = pad_vocab(cfg.vocab_size)
+    segments: List[Tuple[str, List[Op]]] = [
+        ("head", [MemoryOp("embed", "embed_gather", (Vp, d), dtype=dt)]),
+    ]
+    kind_counts = Counter(cfg.layer_kinds)
+
+    def attn_ops(n: int, kind: str, prefix: str):
+        window = cfg.sliding_window if kind == C.LOCAL_ATTN else None
+        skv = _clamp_ctx(ctx, window)
+        return [
+            MemoryOp(f"{prefix}.ln", "rmsnorm", (T, d), count=n, dtype=dt),
+            MatmulOp(f"{prefix}.wq", m=T, n=hq * hd, k=d, count=n, dtype=dt),
+            MatmulOp(f"{prefix}.wk", m=T, n=hkv * hd, k=d, count=n, dtype=dt),
+            MatmulOp(f"{prefix}.wv", m=T, n=hkv * hd, k=d, count=n, dtype=dt),
+            MemoryOp(f"{prefix}.rope", "rope", (T, hq, hd), count=n, dtype=dt),
+            MemoryOp(f"{prefix}.kv_append", "add", (batch, 2 * hkv * hd),
+                     count=n, dtype=dt),
+            AttentionOp(f"{prefix}.attn", batch=batch, heads=hq,
+                        kv_heads=hkv, sq=1, skv=skv, hd=hd,
+                        causal=kind != C.ENC_ATTN, count=n, dtype=dt,
+                        phase=DECODE),
+            MatmulOp(f"{prefix}.wo", m=T, n=d, k=hq * hd, count=n, dtype=dt),
+            MemoryOp(f"{prefix}.residual", "add", (T, d), count=n, dtype=dt),
+        ]
+
+    def ffn_ops(n: int, prefix: str):
+        return _ffn_ops(cfg, T, batch, dt, n, prefix)
+
+    for kind, n in sorted(kind_counts.items()):
+        ops: List[Op] = []
+        if kind in (C.ATTN, C.LOCAL_ATTN):
+            ops += attn_ops(n, kind, kind)
+            ops += ffn_ops(n, kind)
+        elif kind == C.CROSS_ATTN:
+            ops += attn_ops(n, C.ATTN, "self")
+            Lx = cfg.cross_attn_context_len or (
+                cfg.encoder.n_frames if cfg.encoder else 0)
+            # cross K/V were cached at prefill: decode computes q only and
+            # reads the fixed encoder context (skv = Lx, O(1) in ctx)
+            ops += [
+                MatmulOp("cross.wq", m=T, n=hq * hd, k=d, count=n, dtype=dt),
+                AttentionOp("cross.attn", batch=batch, heads=hq,
+                            kv_heads=hkv, sq=1, skv=Lx, hd=hd, causal=False,
+                            count=n, dtype=dt, phase=DECODE),
+                MatmulOp("cross.wo", m=T, n=d, k=hq * hd, count=n, dtype=dt),
+            ]
+            ops += ffn_ops(n, "decoder")
+        elif kind == C.RGLRU:
+            dl = cfg.lru_dim or d
+            ops += [
+                MemoryOp("rglru.ln", "rmsnorm", (T, d), count=n, dtype=dt),
+                MatmulOp("rglru.wx", m=T, n=dl, k=d, count=2 * n, dtype=dt),
+                MemoryOp("rglru.conv", "conv1d4", (batch, 4, dl), count=n,
+                         dtype=dt),
+                MatmulOp("rglru.gates", m=T, n=dl, k=dl, count=2 * n, dtype=dt),
+                MemoryOp("rglru.step", "gate_sigmoid", (T, dl), count=n,
+                         dtype=dt),
+                MemoryOp("rglru.gate_mul", "silu_mul", (T, dl), count=n,
+                         dtype=dt),
+                MatmulOp("rglru.w_out", m=T, n=d, k=dl, count=n, dtype=dt),
+            ]
+            ops += ffn_ops(n, "rglru")
+        elif kind == C.MLSTM:
+            di = 2 * d
+            hdm = di // hq
+            ops += [
+                MemoryOp("mlstm.ln", "rmsnorm", (T, d), count=n, dtype=dt),
+                MatmulOp("mlstm.up", m=T, n=2 * di, k=d, count=n, dtype=dt),
+                MemoryOp("mlstm.conv", "conv1d4", (batch, 4, di), count=n,
+                         dtype=dt),
+                MatmulOp("mlstm.qkv", m=T, n=di, k=di, count=3 * n, dtype=dt),
+                # matrix-memory update (k v^T outer product) + read (q C):
+                # per-head (1, hdm) x (hdm, hdm) steps, O(1) in ctx
+                MatmulOp("mlstm.state", m=1, n=hdm, k=hdm, batch=batch * hq,
+                         count=2 * n, dtype=dt, kind="bmm"),
+                MemoryOp("mlstm.gate", "silu_mul", (T, di), count=n, dtype=dt),
+                MatmulOp("mlstm.down", m=T, n=d, k=di, count=n, dtype=dt),
+            ]
+        elif kind == C.SLSTM:
+            ops += [
+                MemoryOp("slstm.ln", "rmsnorm", (T, d), count=n, dtype=dt),
+                MatmulOp("slstm.wx", m=T, n=4 * d, k=d, count=n, dtype=dt),
+                MatmulOp("slstm.rh", m=batch, n=4 * d, k=d, batch=1,
+                         count=n, dtype=dt),      # ONE recurrent step
+                MemoryOp("slstm.step", "gate_sigmoid", (batch, 4 * d),
+                         count=n, dtype=dt),
+            ]
+            ops += _mlp_ops(cfg, T, dt, "slstm.ff", n, slstm_ff(cfg))
+        elif kind == C.ENC_ATTN:
+            ops += attn_ops(n, C.ENC_ATTN, "enc")
+            ops += ffn_ops(n, "enc")
+        segments.append((f"group:{kind}", ops))
+
+    segments.append(("tail", [
+        MemoryOp("final_norm", "rmsnorm", (T, d), dtype=dt),
+        MatmulOp("unembed", m=T, n=Vp, k=d, dtype=dt),
+    ]))
+    return segments
+
+
+def enumerate_decode_graph(cfg: C.ModelConfig, batch: int, ctx: int,
+                           dtype: Optional[str] = None) -> OpGraph:
+    """One decode step as a phase-tagged ``OpGraph`` (serialized chain)."""
+    g = OpGraph(phase=DECODE)
+    for _, seg in _decode_segments(cfg, batch, ctx, dtype=dtype):
+        g.add_chain(seg, deps=g.tail())
+    return g
+
+
+def enumerate_decode_ops(cfg: C.ModelConfig, batch: int, ctx,
+                         dtype: Optional[str] = None) -> List[Op]:
+    """Op list for ONE decode step of ``batch`` requests at KV length
+    ``ctx``: the flat view over ``enumerate_decode_graph``."""
+    return [op for _, seg in _decode_segments(cfg, batch, ctx, dtype=dtype)
+            for op in seg]

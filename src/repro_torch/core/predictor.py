@@ -6,8 +6,9 @@ Kernel selection — which profiled table answers for an op — lives in
 ``core/oracle.py`` (``KernelOracle``).  ``PredictionRow.kernel`` reports the
 kernel id the oracle actually selected (e.g. ``cublas@1024x1024``).  The
 arithmetic is the JAX package's, so the same store and features give
-bit-identical answers.  Decode, collective, parallel and training-step
-prediction come with later slices.
+bit-identical answers.  A decode step is priced as
+``predict_ops(enumerate_decode_ops(...))``; collective, parallel and
+training-step prediction come with later slices.
 """
 from __future__ import annotations
 
@@ -47,9 +48,6 @@ class PM2Lat:
 
     def _attention_table(self, op: og.AttentionOp,
                          kernel: Optional[str]) -> ThroughputTable:
-        if op.phase != og.PREFILL:
-            raise NotImplementedError(
-                f"{op.phase!r} attention is priced by the decode slice")
         if kernel is not None:
             return self.oracle.lookup("attention", kernel, op.dtype)
         return self.oracle.select_attention(op.dtype, op.skv,
@@ -61,8 +59,19 @@ class PM2Lat:
 
     def predict_attention(self, op: og.AttentionOp,
                           kernel: Optional[str] = None) -> float:
+        if op.phase == og.DECODE:
+            return self.predict_decode_attention(op)
         t = self._attention_table(op, kernel)
         return op.flops / t.interpolate_throughput(op.skv)
+
+    def predict_decode_attention(self, op: og.AttentionOp) -> float:
+        """Decode-phase attention (sq=1): the step streams the KV cache, so
+        the op is memory-bound and flops-based table pricing collapses:
+        price it with the memory model over the analytic KV-read traffic
+        instead (class ``softmax``: the same reduce-then-scale access
+        pattern)."""
+        return self.memory_model.predict(og.decode_attention_features(op),
+                                         "softmax")
 
     def predict_memory(self, op: og.MemoryOp) -> float:
         return self.memory_model.predict(op.features(),
@@ -74,6 +83,11 @@ class PM2Lat:
             sec = t.predict(op.m, op.n, op.k, batch=op.batch) * op.count
             return PredictionRow(op.name, op.kind, sec, t.key.kernel)
         if op.kind == "attention":
+            if op.phase == og.DECODE:
+                gqa = max(1, op.heads // max(1, op.kv_heads))
+                return PredictionRow(op.name, "attention",
+                                     self.predict_decode_attention(op),
+                                     f"kv_read@gqa{gqa}")
             t = self._attention_table(op, None)
             sec = op.flops / t.interpolate_throughput(op.skv)
             return PredictionRow(op.name, "attention", sec, t.key.kernel)

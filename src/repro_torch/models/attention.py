@@ -1,17 +1,30 @@
-"""Attention: GQA + RoPE over a full sequence (the prefill forward pass).
+"""Attention: GQA + RoPE over a full sequence (prefill) and one token
+against a KV cache (decode).
 
 Layouts as in the JAX package: activations (B, S, d); q (B, S, Hq, hd);
-k/v (B, S, Hkv, hd).  The attention itself is ``kernels.ops.flash_attention``:
+k/v (B, S, Hkv, hd).  The prefill attention is ``kernels.ops.flash_attention``:
 the hand-written flash kernel on CUDA tensors, its plain version on CPU
-tensors.  Decode attention and KV caches come with the decode slice.
+tensors.  Decode attention is the JAX package's plain path (no Pallas
+kernel there, no hand kernel here).
+
+KV caches are head-major, (B, Hkv, W, hd) a layer, where the JAX package
+keeps (B, W, Hkv, hd): each (batch, KV head) pair is then one contiguous
+(W, hd) matrix, so the decode step's two products are batched GEMMs over
+B·Hkv that read the cache in place, with no copy and no repeat of KV heads.
+Cross attention and the sliding-window ring buffer come with their model
+kinds.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+
+NEG_INF = -1e30
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -58,19 +71,87 @@ class Attention(nn.Module):
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset(gen)
 
-    def forward(self, x, *, causal=True, window=None, compute_dtype=None,
-                rope=None):
-        """``rope``: (cos, sin) from ``rope_tables`` over positions 0..S-1,
-        computed here when not given."""
+    def _project(self, x, compute_dtype, rope):
         cfg = self.cfg
         B, S, _ = x.shape
         q = self.wq(x, compute_dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
         k = self.wk(x, compute_dtype).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
         v = self.wv(x, compute_dtype).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+        return rotate(q, *rope), rotate(k, *rope), v
+
+    def forward(self, x, *, causal=True, window=None, compute_dtype=None,
+                rope=None):
+        """Returns (out, (k, v)), k and v (B, S, Hkv, hd) post-RoPE for cache
+        seeding, as the JAX package's ``attn_forward``.  ``rope``: (cos, sin)
+        from ``rope_tables`` over positions 0..S-1, computed here when not
+        given."""
+        B, S, _ = x.shape
         if rope is None:
             rope = rope_tables(torch.arange(S, device=x.device)[None, :],
-                               cfg.head_dim, cfg.rope_theta)
-        q = rotate(q, *rope)
-        k = rotate(k, *rope)
+                               self.cfg.head_dim, self.cfg.rope_theta)
+        q, k, v = self._project(x, compute_dtype, rope)
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
-        return self.wo(o.reshape(B, S, -1), compute_dtype)
+        return self.wo(o.reshape(B, S, -1), compute_dtype), (k, v)
+
+    def decode(self, x, k_cache, v_cache, pos, slot_positions, *,
+               compute_dtype=None, rope):
+        """One token a sequence (the self-attention branch of the JAX
+        package's ``attn_decode``).  x (B, 1, d); caches (B, Hkv, W, hd),
+        written in place at slot ``pos``, a one-element int64 tensor on the
+        cache's device, so that a captured CUDA graph reads it at replay:
+        nothing here reads it on the host.  ``rope``: ``rope_tables`` at
+        ``pos``.  Returns (B, 1, d)."""
+        B = x.shape[0]
+        q, k, v = self._project(x, compute_dtype, rope)
+        k_cache.index_copy_(2, pos, k.to(k_cache.dtype).transpose(1, 2))
+        v_cache.index_copy_(2, pos, v.to(v_cache.dtype).transpose(1, 2))
+        o = decode_attention(q, k_cache, v_cache, slot_positions, pos)
+        return self.wo(o.reshape(B, 1, -1), compute_dtype)
+
+
+def _bmm_f32(a, b):
+    """a @ b (batched, one dtype) with float32 output and float32 sums, the
+    counterpart of ``preferred_element_type=f32``, never casting ``b`` (the
+    cache) to float32 on the card.  There a bf16 product is one cuBLAS GEMM
+    with f32 accumulation and f32 output (``torch.bmm``'s ``out_dtype``).
+    The CPU has no such GEMM: there both operands are cast, which gives the
+    same function, since the product of two bf16 numbers is exact in f32
+    and the sums are f32 either way (only their order differs)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def decode_attention(q, k_cache, v_cache, slot_positions, pos, window=None):
+    """q (B, 1, Hq, hd); caches (B, Hkv, W, hd) head-major; slot_positions
+    (W,) giving each slot's absolute position (-1 = empty); pos a scalar
+    or a one-element tensor.  Returns (B, 1, Hq, hd).
+
+    The JAX package's ``decode_attention``: query head h reads KV head
+    h // G (q reshaped to (B, Hkv, G, hd), no repeat), slots valid where
+    0 <= position <= pos (and > pos - window), invalid scores set to
+    NEG_INF, softmax in f32.  Scores and the output accumulate in f32 by
+    ``_bmm_f32``; q is cast to the cache's type and P to V's, as there."""
+    B, _, Hq, hd = q.shape
+    Hkv, W = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B * Hkv, G, hd).to(k_cache.dtype)
+    k = k_cache.reshape(B * Hkv, W, hd)
+    s = _bmm_f32(qg, k.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+    valid = (slot_positions >= 0) & (slot_positions <= pos)
+    if window is not None:
+        valid &= slot_positions > pos - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = _bmm_f32(p.to(v_cache.dtype), v_cache.reshape(B * Hkv, W, hd))
+    return o.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.bfloat16,
+                  device=None):
+    """Zeroed (k, v) caches of one layer, each (B, Hkv, seq_len, hd).  The
+    JAX package's ``window`` (a ring buffer of min(window, seq_len) slots)
+    comes with the sliding-window models."""
+    shape = (batch, cfg.n_kv_heads, seq_len, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,5 +1,8 @@
 """Model facade: a ModelConfig (or its name) -> a ``Transformer`` on a
-device, its weights drawn from a seeded ``torch.Generator``."""
+device, its weights drawn from a seeded ``torch.Generator``.  The model
+holds its weights, so it is what the serving engine calls where the JAX
+package's ``Model`` takes parameters: ``prefill``, ``decode_step``,
+``init_cache``, ``make_ctx`` and ``padded_vocab``."""
 from __future__ import annotations
 
 import torch

@@ -144,7 +144,7 @@ def test_attention_block_matches_jax():
     attn.load_state_dict({f"{n}.{k}": torch.from_numpy(v)
                           for n, leaf in p.items() for k, v in leaf.items()})
     with torch.no_grad():
-        got = attn(torch.from_numpy(x), causal=True)
+        got, _ = attn(torch.from_numpy(x), causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=1e-5)
 
