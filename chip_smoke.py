@@ -10,9 +10,13 @@ CUDA kernels from ``src/repro_torch/kernels/csrc`` and holds each against its
 plain PyTorch version on the card.  Then the decode path: prefill and one
 decode step of qwen2-0.5b at batch 8 and two contexts, eager and as a
 replayed CUDA graph, measured and predicted; and the serving path: the
-``serve`` launcher's engine over 16 requests in two waves.  Every phase
-prints one JSON line; the full record (and the calibrated store) goes to
-``chiprun_out/``.
+``serve`` launcher's engine over 16 requests in two waves.  Then the grid
+path: the batch engine (``core/batch_predict.py``) held against the scalar
+predictor over a (batch, seq) and a (batch, ctx) grid on the card's store,
+forwards and CUDA-graph decode steps measured at some of its points, the
+engine's speed, its prediction cache, the NAS precompute against
+``torch.matmul`` and the device fleet.  Every phase prints one JSON line;
+the full record (and the calibrated store) goes to ``chiprun_out/``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failing phase, a
 missing card, or a checkout without ``src/repro_torch`` (the import fails)
@@ -41,9 +45,14 @@ from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import opgraph as og  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
-from repro_torch.core.device import H100_SXM  # noqa: E402
+from repro_torch.core.batch_predict import (BatchPredictor,  # noqa: E402
+                                            PredictionCache, config_key)
+from repro_torch.core.devices.profiles import H100_SXM  # noqa: E402
+from repro_torch.core.devices.profiles import FLEET  # noqa: E402
+from repro_torch.core.nas import NASGrid, precompute_cache  # noqa: E402
 from repro_torch.core.oracle import PROVIDER_PALLAS  # noqa: E402
 from repro_torch.core.predictor import PM2Lat  # noqa: E402
+from repro_torch.core.transfer import transfer_store  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
@@ -82,6 +91,20 @@ DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SERVE_ARGS = ["--arch", MODEL, "--requests", "16", "--prompt-len", "512",
               "--max-new", "32", "--max-batch", "8", "--temperature", "0",
               "--compute-dtype", "bfloat16", "--seed", "0"]
+# The grid phase: the engine's (batch, seq) and (batch, ctx) grids, held
+# against the scalar predictor at the JAX package's own contract (1e-9
+# relative, tests/test_batch_predict.py); the points whose forward (at most
+# 16,384 tokens: the float32 logits alone are 10 GB there) and CUDA-graph
+# decode step are measured; the NAS sample and its largest operand.
+DTYPES = ("float32", "bfloat16")
+GRID_BATCHES, GRID_SEQS = (1, 2, 4, 8, 16), (128, 256, 512, 1024, 2048)
+GRID_DECODE_BATCHES, GRID_CTXS = (1, 4, 8, 16), (512, 1024, 2048)
+GRID_RTOL = 1e-9
+GRID_MEASURED = ((1, 128), (1, 1024), (4, 512), (8, 512), (8, 2048),
+                 (16, 1024))
+GRID_DECODE_MEASURED = ((1, 512), (4, 2048), (16, 1024))
+NAS_POINTS, NAS_MAX_OPERAND = 32, 1 << 30
+PAPER_US_PER_PREDICTION = 45.0      # the paper's 0.045 ms a prediction
 
 
 def emit(phase: str, **fields):
@@ -323,13 +346,26 @@ def decode_path_cases():
              None) for ctx in DECODE_CTXS for S in (ctx - 1, ctx)]
 
 
+def grid_path_cases():
+    """The flash calls of the grid path that ``decode_path_cases`` lacks:
+    each measured forward (B, S) and each measured decode point's prefill
+    of ctx - 1 tokens and forward over ctx."""
+    c = cfg_registry.get(MODEL)
+    have = {(B, S) for B, S, *_ in decode_path_cases()}
+    shapes = sorted(set(GRID_MEASURED)
+                    | {(b, S) for b, ctx in GRID_DECODE_MEASURED
+                       for S in (ctx - 1, ctx)})
+    return [(B, S, S, c.n_heads, c.n_kv_heads, c.head_dim, True, None, None)
+            for B, S in shapes if (B, S) not in have]
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), both configs; in
     bf16 every (config, hd) goes through TMA, and strided views (TMA) and
     tensors 2 bytes off alignment or with an odd row stride (the second
     load path) are added; then the decode and serve paths' shapes
-    (``decode_path_cases``)."""
+    (``decode_path_cases``) and the grid path's (``grid_path_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -347,7 +383,7 @@ def check_flash(dtypes):
         (1, 150, 201, 4, 2, 64, True, None, "offset"),   # 2 bytes off
         (1, 129, 129, 2, 1, 128, False, None, "offset"),
         (1, 100, 100, 2, 2, 32, True, None, "odd_row"),  # odd sequence stride
-    ] + decode_path_cases()
+    ] + decode_path_cases() + grid_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -645,17 +681,32 @@ def phase_decode(store):
                            "floor_share": floor / rec["graph_ms"]})
             emit("decode", **rec)
             records.append(rec)
-            bad = [k for k in ("cache_bytes_ok", "logits_ok", "graph_bitwise",
-                               "planted_fault_caught") if not rec[k]]
-            if bad or rec["hand_launches_in_step"]:
-                raise AssertionError(f"decode {dname} ctx {ctx}: failed {bad}, "
-                                     f"hand launches in the step "
-                                     f"{rec['hand_launches_in_step']}")
+            bad = decode_failures(rec)
+            if bad:
+                raise AssertionError(f"decode {dname} ctx {ctx}: failed {bad}")
     emit("decode_floors", rows=floors)
     return records, floors
 
 
-def decode_record(model, pm, cfg, tokens):
+DECODE_CHECKS = ("cache_bytes_ok", "logits_ok", "graph_bitwise",
+                 "planted_fault_caught")
+
+
+def decode_failures(rec):
+    """The DECODE_CHECKS ``rec`` failed, and a hand launch inside the step."""
+    bad = [k for k in DECODE_CHECKS if not rec[k]]
+    if rec["hand_launches_in_step"]:
+        bad.append(f"hand launches in the step {rec['hand_launches_in_step']}")
+    return bad
+
+
+def decode_check(model, cfg, tokens):
+    """One decode step at (B, ctx) = ``tokens.shape``: prefill ctx - 1
+    tokens at capacity ctx, step eagerly, as a step planted one slot early
+    and as a CUDA graph, and time the graph.  Returns the record of
+    DECODE_CHECKS, the eager and graph step callables and the hand-kernel
+    counts taken before the first step (``hand_launches_in_step`` covers
+    the steps made here)."""
     dname = cfg.compute_dtype
     B, ctx = tokens.shape
     logits = model(tokens)
@@ -687,34 +738,50 @@ def decode_record(model, pm, cfg, tokens):
         graph.cache.pos.fill_(ctx - 1)
         return graph(tok)
 
-    eager_s = profiler.measure(eager_step)
     graph_s = profiler.measure(graph_step)
+    rec = {"dtype": dname, "batch": B, "ctx": ctx,
+           "capacity": cache.capacity,
+           "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
+           "cache_bytes_ok": cache.nbytes == kv,
+           "logits_rel_err": err, "logits_tol": DECODE_TOL[dname],
+           "logits_ok": err <= DECODE_TOL[dname],
+           "planted_fault_rel_err": fault_err,
+           "planted_fault_caught": fault_err > DECODE_TOL[dname],
+           "graph_bitwise": bool(torch.equal(eager, replay)),
+           "hand_launches_in_step": launches_since(before),
+           "graph_ms": graph_s * 1e3}
+    return rec, eager_step, graph_step, before
+
+
+def launches_since(before):
+    return {k: v - before[k] for k, v in hand_launches().items()
+            if v != before[k]}
+
+
+def decode_record(model, pm, cfg, tokens):
+    """``decode_check`` plus the eager step's time, both steps' traces and
+    the scalar predictor's step."""
+    dname = cfg.compute_dtype
+    B, ctx = tokens.shape
+    rec, eager_step, graph_step, before = decode_check(model, cfg, tokens)
+    eager_s = profiler.measure(eager_step)
     eager_trace = forward_trace(eager_step)
     graph_trace = forward_trace(graph_step)
-    in_step = {k: v - before[k] for k, v in hand_launches().items() if v
-               != before[k]}
     total, rows = pm.predict_ops(og.enumerate_decode_ops(cfg, B, ctx,
                                                          dtype=dname))
     top = sorted(rows, key=lambda r: -r.seconds)[:5]
     by_kind = {}
     for r in rows:
         by_kind[r.kind] = by_kind.get(r.kind, 0.0) + r.seconds * 1e3
-    return {"dtype": dname, "batch": B, "ctx": ctx,
-            "capacity": cache.capacity,
-            "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
-            "cache_bytes_ok": cache.nbytes == kv,
-            "logits_rel_err": err, "logits_tol": DECODE_TOL[dname],
-            "logits_ok": err <= DECODE_TOL[dname],
-            "planted_fault_rel_err": fault_err,
-            "planted_fault_caught": fault_err > DECODE_TOL[dname],
-            "graph_bitwise": bool(torch.equal(eager, replay)),
-            "hand_launches_in_step": in_step,
-            "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
-            "predicted_ms": total * 1e3, "predicted_ms_by_kind": by_kind,
-            "err_pct": 100 * abs(total - graph_s) / graph_s,
-            "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3]
-                               for r in top],
-            "eager_trace": eager_trace, "graph_trace": graph_trace}
+    graph_s = rec["graph_ms"] / 1e3
+    rec.update({"hand_launches_in_step": launches_since(before),
+                "eager_ms": eager_s * 1e3,
+                "predicted_ms": total * 1e3, "predicted_ms_by_kind": by_kind,
+                "err_pct": 100 * abs(total - graph_s) / graph_s,
+                "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3]
+                                   for r in top],
+                "eager_trace": eager_trace, "graph_trace": graph_trace})
+    return rec
 
 
 def phase_serve(store):
@@ -798,6 +865,295 @@ def check_served(engine, done):
                 if diff.size:
                     mismatched[r.rid] = int(diff[0])
     return {"requests": len(done), "mismatched": mismatched}
+
+
+def phase_grid(store):
+    """The batch engine on the card's store (qwen2-0.5b, float32 and bf16).
+    Fails unless the engine's prefill and decode grids equal the scalar
+    predictor within GRID_RTOL, every measured forward gives finite logits
+    with one flash launch a layer, the identity transfer reproduces the
+    store, ``for_device`` of the store's device is the engine itself, and a
+    ``PredictionCache`` comes back from its JSON file equal, every measured
+    decode step passes DECODE_CHECKS, and the engine's re-anchored
+    ``h100_sxm`` prediction equals the scalar predictor's.  Reports the
+    engine's and the NAS precompute's speed, the error across the grid
+    against forwards and CUDA-graph decode steps measured on the card, the
+    NAS sample's error against ``torch.matmul`` and the fleet."""
+    dev = store.meta["device"]
+    cfg0 = cfg_registry.get(MODEL)
+    engines, agree = {}, []
+    for dname in DTYPES:
+        bp, row, grids = grid_agreement(store, dev, dataclasses.replace(
+            cfg0, compute_dtype=dname))
+        engines[dname] = (bp, grids)
+        agree.append(row)
+        emit("grid_agreement", **row)
+    bad = [r for r in agree if not r["ok"]]
+    if bad:
+        raise AssertionError(f"engine against the scalar predictor: {bad}")
+    prefill, decode = grid_measure(cfg0, engines)
+    speed, nas_vals = engine_speed(cfg0, engines, dev, store)
+    nas = {d: nas_vs_card(nas_vals[d], d) for d in DTYPES}
+    fleet = grid_fleet(cfg0, engines, store, dev, prefill)
+    summary = {}
+    for d in DTYPES:
+        for name, rows in (("prefill", prefill), ("decode", decode)):
+            err = [r["err_pct"] for r in rows if r["dtype"] == d]
+            summary.setdefault(d, {}).update({
+                f"{name}_mean_err_pct": float(np.mean(err)),
+                f"{name}_max_err_pct": float(np.max(err))})
+    emit("grid_summary", **summary)
+    return {"agreement": agree, "prefill": prefill, "decode": decode,
+            "speed": speed, "nas": nas, "fleet": fleet, "summary": summary}
+
+
+def grid_agreement(store, dev, cfg):
+    """One dtype: the engine's grids (a fresh engine with no feature rows,
+    timed cold and warm) against ``PM2Lat`` point by point, prefill as
+    ``predict_model`` and decode as ``phase_decode`` prices a step."""
+    dname = cfg.compute_dtype
+    og._snippet_features.cache_clear()
+    bp = BatchPredictor(store, dev)
+    t0 = time.perf_counter()
+    grid = bp.predict_model_grid(cfg, GRID_BATCHES, GRID_SEQS, dname)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = bp.predict_model_grid(cfg, GRID_BATCHES, GRID_SEQS, dname)
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dgrid = bp.predict_decode_grid(cfg, GRID_DECODE_BATCHES, GRID_CTXS, dname)
+    dtime = time.perf_counter() - t0
+    pm = PM2Lat(store, dev)
+    t0 = time.perf_counter()
+    want = np.array([[pm.predict_model(cfg, b, s, dtype=dname)[0]
+                      for s in GRID_SEQS] for b in GRID_BATCHES])
+    scalar_s = time.perf_counter() - t0
+    dwant = np.array([[pm.predict_ops(og.enumerate_decode_ops(
+        cfg, b, c, dtype=dname))[0] for c in GRID_CTXS]
+        for b in GRID_DECODE_BATCHES])
+    rel = float(np.max(np.abs(grid - want) / want))
+    drel = float(np.max(np.abs(dgrid - dwant) / dwant))
+    n = grid.size
+    row = {"dtype": dname, "batches": GRID_BATCHES, "seqs": GRID_SEQS,
+           "max_rel_diff": rel, "decode_batches": GRID_DECODE_BATCHES,
+           "ctxs": GRID_CTXS, "decode_max_rel_diff": drel,
+           "rtol": GRID_RTOL, "warm_equals_cold": bool(np.array_equal(grid,
+                                                                      again)),
+           "ok": rel <= GRID_RTOL and drel <= GRID_RTOL
+           and bool(np.array_equal(grid, again)),
+           "grid_ms": (grid * 1e3).tolist(),
+           "decode_grid_ms": (dgrid * 1e3).tolist(),
+           "cold_points_per_s": n / cold, "warm_points_per_s": n / warm,
+           "decode_points_per_s": dgrid.size / dtime,
+           "scalar_points_per_s": n / scalar_s}
+    return bp, row, (grid, dgrid)
+
+
+def grid_measure(cfg0, engines):
+    """qwen2-0.5b with random weights (seed 0) measured at GRID_MEASURED
+    (``profiler.measure`` of the forward) and GRID_DECODE_MEASURED (the
+    CUDA-graph decode step of ``decode_check``, which also holds the step
+    to DECODE_CHECKS as ``phase_decode`` does), beside the engine's grids."""
+    model = model_registry.build(dataclasses.replace(
+        cfg0, compute_dtype="float32"), device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prefill, decode = [], []
+    for dname in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        model.cfg = cfg
+        if dname == "bfloat16":
+            model.cast_weights_(torch.bfloat16)
+        grid, dgrid = engines[dname][1]
+        for b, s in GRID_MEASURED:
+            tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                   device="cuda")
+            with torch.no_grad():
+                before = fk.flash_attention_kernel.launches
+                logits = model(tokens)
+                torch.cuda.synchronize()
+                flash = fk.flash_attention_kernel.launches - before
+                finite = bool(torch.isfinite(logits).all())
+                shape = list(logits.shape)
+                del logits
+                meas = profiler.measure(model, tokens)
+            pred = float(grid[GRID_BATCHES.index(b), GRID_SEQS.index(s)])
+            row = {"dtype": dname, "batch": b, "seq": s, "tokens": b * s,
+                   "predicted_ms": pred * 1e3, "measured_ms": meas * 1e3,
+                   "err_pct": 100 * abs(pred - meas) / meas,
+                   "flash_launches": flash, "logits_finite": finite}
+            emit("grid_prefill", **row)
+            prefill.append(row)
+            if (not finite or flash != cfg.n_layers
+                    or shape != [b, s, model.padded_vocab]):
+                raise AssertionError(f"grid forward {dname} {(b, s)}: logits "
+                                     f"{shape} finite={finite}, {flash} "
+                                     f"flash launches")
+        for b, ctx in GRID_DECODE_MEASURED:
+            tokens = torch.randint(0, cfg.vocab_size, (b, ctx), generator=gen,
+                                   device="cuda")
+            with torch.no_grad():
+                rec = decode_check(model, cfg, tokens)[0]
+            torch.cuda.empty_cache()
+            pred = float(dgrid[GRID_DECODE_BATCHES.index(b),
+                               GRID_CTXS.index(ctx)])
+            meas = rec["graph_ms"] / 1e3
+            rec.update({"predicted_ms": pred * 1e3,
+                        "err_pct": 100 * abs(pred - meas) / meas})
+            emit("grid_decode", **rec)
+            decode.append(rec)
+            bad = decode_failures(rec)
+            if bad:
+                raise AssertionError(f"grid decode {dname} {(b, ctx)}: "
+                                     f"failed {bad}")
+    del model
+    torch.cuda.empty_cache()
+    return prefill, decode
+
+
+def engine_speed(cfg0, engines, dev, store):
+    """``predict_model_cached`` miss against hit, a ``PredictionCache``
+    round trip through a JSON file under ``chiprun_out/`` (fails unless
+    every value comes back equal), and ``precompute_cache`` at the
+    reference defaults over the whole NAS grid (its arrays are returned)."""
+    path = OUT / "grid_prediction_cache.json"
+    if path.exists():
+        path.unlink()
+    cache = PredictionCache(path=str(path))
+    miss, hit, keys = [], [], []
+    for dname in DTYPES:
+        bp = engines[dname][0]
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        for b in GRID_BATCHES:
+            for s in GRID_SEQS:
+                t0 = time.perf_counter()
+                v = bp.predict_model_cached(cfg, b, s, dtype=dname,
+                                            cache=cache)
+                t1 = time.perf_counter()
+                w = bp.predict_model_cached(cfg, b, s, dtype=dname,
+                                            cache=cache)
+                t2 = time.perf_counter()
+                miss.append(t1 - t0)
+                hit.append(t2 - t1)
+                if v != w:
+                    raise AssertionError(f"cache hit {w} != miss {v}")
+                keys.append((PredictionCache.make_key(
+                    config_key(cfg), bp.cache_device, dname, b, s), v))
+    cache.save()
+    back = PredictionCache(path=str(path))
+    round_trip = len(back) == len(keys) and all(back.get(k) == v
+                                                for k, v in keys)
+    out = {"cached_miss_us": 1e6 * float(np.mean(miss)),
+           "cached_hit_us": 1e6 * float(np.mean(hit)),
+           "cache_entries": len(keys), "cache_round_trip_equal": round_trip,
+           "cache_file": str(path.relative_to(ROOT))}
+    nas_vals = {}
+    for dname in DTYPES:
+        vals, secs, us, n = precompute_cache(store, dev, dtype=dname,
+                                             predictor=engines[dname][0])
+        out[f"nas_{dname}"] = {"n_predictions": n, "seconds": secs,
+                               "us_per_prediction": us,
+                               "paper_us_per_prediction":
+                                   PAPER_US_PER_PREDICTION,
+                               "finite": bool(np.isfinite(vals).all())}
+        nas_vals[dname] = vals
+    emit("grid_speed", **out)
+    if not round_trip:
+        raise AssertionError("the prediction cache did not come back equal "
+                             "from its JSON file")
+    return out, nas_vals
+
+
+def nas_vs_card(vals, dname):
+    """NAS_POINTS entries of ``precompute_cache``'s array ``vals``, spread
+    over its sorted predictions among those whose largest operand is at
+    most NAS_MAX_OPERAND bytes, each timed as ``torch.matmul`` (the cuBLAS
+    call whose ``cublas@*`` table priced it) in ``dname``: median and p90
+    of the error, and the Spearman rank correlation (NAS ranks by them)."""
+    grid = NASGrid()
+    f = np.asarray(grid.features, np.int64)
+    rows = (np.asarray(grid.batches, np.int64)[:, None]
+            * np.asarray(grid.seq_lens, np.int64)[None, :]).reshape(-1)
+    nf, nm = len(f), len(rows)
+    if vals.size != nf * nf * nm:       # the default limit takes every row
+        raise AssertionError(f"NAS cache of {vals.size} != {nf * nf * nm}")
+    idx = np.arange(vals.size)
+    M, N, K = rows[idx % nm], f[(idx // nm) % nf], f[idx // (nf * nm)]
+    esz = torch.finfo(getattr(torch, dname)).bits // 8
+    largest = np.maximum(np.maximum(M * K, K * N), M * N) * esz
+    ok = np.flatnonzero(largest <= NAS_MAX_OPERAND)
+    order = ok[np.argsort(vals[ok], kind="stable")]
+    pick = order[np.linspace(0, order.size - 1, NAS_POINTS).round()
+                 .astype(np.int64)]
+    dt = getattr(torch, dname)
+    pred, meas, points = [], [], []
+    for i in pick:
+        m, n, k = int(M[i]), int(N[i]), int(K[i])
+        a = torch.randn(m, k, device="cuda", dtype=dt)
+        b = torch.randn(k, n, device="cuda", dtype=dt)
+        t = profiler.measure(torch.matmul, a, b)
+        del a, b
+        pred.append(float(vals[i]))
+        meas.append(t)
+        points.append([m, n, k, float(vals[i]) * 1e3, t * 1e3])
+    pred, meas = np.array(pred), np.array(meas)
+    err = 100 * np.abs(pred - meas) / meas
+    rank = lambda x: np.argsort(np.argsort(x, kind="stable"), kind="stable")
+    rho = float(np.corrcoef(rank(pred), rank(meas))[0, 1])
+    out = {"dtype": dname, "points": NAS_POINTS,
+           "max_operand_bytes": NAS_MAX_OPERAND,
+           "median_err_pct": float(np.median(err)),
+           "p90_err_pct": float(np.percentile(err, 90)),
+           "spearman_rho": rho,
+           "mnk_predicted_ms_measured_ms": points}
+    emit("grid_nas", **out)
+    return out
+
+
+def grid_fleet(cfg0, engines, store, dev, prefill):
+    """``for_device`` of the store's own device is the engine, and the
+    identity transfer reproduces every table and the memory model (both
+    structural: early returns of ``for_device`` and ``transfer_table``),
+    and the engine's prediction on the store re-anchored to the datasheet
+    ``h100_sxm`` equals ``PM2Lat`` on that store within GRID_RTOL (fails
+    otherwise); qwen2-0.5b (8, 512) predicted on every FLEET device from
+    this store, and the same-chip transfer: the ``h100_sxm`` prediction
+    against the forward measured here."""
+    bp = engines["float32"][0]
+    host = bp.host_profile()
+    ident = transfer_store(store, host, host)
+    exact = (sorted(ident.tables) == sorted(store.tables)
+             and all(ident.tables[k] == t for k, t in store.tables.items())
+             and ident.memory_model == store.memory_model)
+    itself = bp.for_device(dev) is bp and bp.for_device(None) is bp
+    b, s = BATCH, SEQ
+    fleet = {}
+    for name in [dev] + [p.name for p in FLEET]:
+        fleet[name] = {d: engines[d][0].predict_model(
+            cfg0, b, s, dtype=d, device=name)[0] * 1e3 for d in DTYPES}
+    # the engine's re-anchored answer against the scalar predictor on a
+    # store transferred apart from the engine's fleet
+    scalar = PM2Lat(transfer_store(store, host, H100_SXM), H100_SXM.name)
+    same_chip, worst = {}, 0.0
+    for d in DTYPES:
+        meas = next(r["measured_ms"] for r in prefill
+                    if r["dtype"] == d and (r["batch"], r["seq"]) == (b, s))
+        pred = fleet["h100_sxm"][d]
+        want = scalar.predict_model(cfg0, b, s, dtype=d)[0] * 1e3
+        worst = max(worst, abs(pred - want) / want)
+        same_chip[d] = {"predicted_ms": pred, "measured_ms": meas,
+                        "err_pct": 100 * abs(pred - meas) / meas,
+                        "host_predicted_ms": fleet[dev][d],
+                        "scalar_predicted_ms": want}
+    out = {"identity_transfer_exact": exact, "for_device_is_engine": itself,
+           "transfer_engine_vs_scalar_max_rel_diff": worst,
+           "host_profile": dataclasses.asdict(host),
+           "predicted_ms_8x512": fleet, "same_chip_transfer": same_chip}
+    emit("grid_fleet", **out)
+    if not (exact and itself and worst <= GRID_RTOL):
+        raise AssertionError(f"fleet: identity transfer exact={exact}, "
+                             f"for_device is the engine={itself}, engine "
+                             f"against scalar on h100_sxm {worst}")
+    return out
 
 
 def kernel_lines(launches, mm_pick):
@@ -1049,8 +1405,11 @@ def main() -> int:
     by_path = {"main": launches, "decode": hand_launches()}
     reset_launches()
     serving, by_path["serve"] = phase_serve(store)
+    reset_launches()
+    grid = phase_grid(store)
+    by_path["grid"] = hand_launches()
     emit("path_launches", **by_path)
-    for path in ("decode", "serve"):
+    for path in ("decode", "serve", "grid"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -1066,7 +1425,8 @@ def main() -> int:
                                 if x["name"] == "matmul")["float32"])
     emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, decode=decode,
-                  decode_floors=decode_floors, serve=serving, kernels=kernels,
+                  decode_floors=decode_floors, serve=serving, grid=grid,
+                  kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

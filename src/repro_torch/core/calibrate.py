@@ -61,6 +61,19 @@ def device_name(device="cuda") -> str:
     return re.sub(r"[^a-z0-9]+", "_", name.lower()).strip("_")
 
 
+def card_sizes(device="cuda") -> dict:
+    """The card's SM count and memory sizes (bytes) as calibration records
+    them in the store's ``meta`` (``devices.host_profile_from_store`` reads
+    them back); empty for the CPU."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        return {}
+    p = torch.cuda.get_device_properties(dev)
+    return {"sm_count": p.multi_processor_count, "hbm_bytes": p.total_memory,
+            "l2_bytes": p.L2_cache_size,
+            "smem_bytes": p.shared_memory_per_multiprocessor}
+
+
 def _dtype(dtype) -> torch.dtype:
     return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
@@ -232,7 +245,8 @@ def calibrate_device(path: Optional[str] = None, *, device="cuda",
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = tf32
-    store.meta = {"device": device_name(dev), "seconds": time.time() - t0}
+    store.meta = {"device": device_name(dev), "seconds": time.time() - t0,
+                  **card_sizes(dev)}
     if path:
         store.save(path)
     if verbose:

@@ -1,13 +1,12 @@
-"""Device models and device resolution.
+"""Device resolution and the per-dtype peak lookup.
 
 PM2Lat is per-device by construction: every device gets its own profiled
-throughput tables (``core/calibrate.py``).  The analytical constants below
-describe the card the port targets (an H100 SXM, NVIDIA's data sheet) and
-are what the kernels' roofline bounds are computed from.
+throughput tables (``core/calibrate.py``).  The analytical datasheets of
+the card the port targets and of the rest of the fleet are the
+``DeviceProfile``s in ``core/devices/profiles.py``.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 import warnings
@@ -45,37 +44,6 @@ def peak_lookup(peak_flops: dict, dtype: str, owner: str,
     warnings.warn(f"{msg}; falling back to max(peak_flops) — predictions for "
                   f"this dtype may be inflated", stacklevel=3)
     return max(peak_flops.values())
-
-
-@dataclasses.dataclass(frozen=True)
-class DeviceModel:
-    name: str
-    peak_flops: dict          # dtype -> FLOP/s per chip
-    hbm_bw: float             # bytes/s per chip
-    ici_bw: float             # bytes/s per link
-    ici_links: int            # links per chip contributing to collectives
-    hbm_bytes: int
-    vmem_bytes: int           # on-chip memory one kernel block can use
-    chips_per_pod: int = 256
-
-    def peak(self, dtype: str, *, strict: bool | None = None) -> float:
-        return peak_lookup(self.peak_flops, dtype, f"DeviceModel({self.name})",
-                           strict)
-
-
-# Dense peaks without sparsity at the 700 W limit; float32 is the CUDA-core
-# FFMA rate (true f32, what the hand kernels and cuBLAS f32 GEMMs run at).
-H100_SXM = DeviceModel(
-    name="h100_sxm",
-    peak_flops={"bfloat16": 989e12, "float16": 989e12, "tf32": 495e12,
-                "float32": 67e12, "fp8": 1979e12, "int8": 1979e12},
-    hbm_bw=3.35e12,
-    ici_bw=450e9,
-    ici_links=1,
-    hbm_bytes=80 * 10 ** 9,
-    vmem_bytes=232448,        # 227 KB of shared memory per block
-    chips_per_pod=8,
-)
 
 
 def _measure_host_flops(n: int = 512, reps: int = 10,

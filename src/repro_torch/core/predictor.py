@@ -7,8 +7,9 @@ Kernel selection — which profiled table answers for an op — lives in
 kernel id the oracle actually selected (e.g. ``cublas@1024x1024``).  The
 arithmetic is the JAX package's, so the same store and features give
 bit-identical answers.  A decode step is priced as
-``predict_ops(enumerate_decode_ops(...))``; collective, parallel and
-training-step prediction come with later slices.
+``predict_ops(enumerate_decode_ops(...))``; a ``CollectiveOp`` by the α–β
+model (``core/collectives.py``) under the device's datasheet interconnect.
+Parallel and training-step prediction come with the schedule slice.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 from repro_torch.configs import base as C
+from repro_torch.core import collectives as CC
 from repro_torch.core import opgraph as og
 from repro_torch.core.memory_model import MemoryModel, class_of
 from repro_torch.core.oracle import KernelOracle
@@ -37,6 +39,13 @@ class PM2Lat:
         self.oracle = KernelOracle(store, device)
         mm = store.memory_model
         self.memory_model = MemoryModel.from_json(mm) if isinstance(mm, dict) else mm
+
+    @property
+    def interconnect(self) -> CC.Interconnect:
+        """This device's α–β interconnect (collective-op prediction): the
+        registered datasheet profile, else ``DEFAULT_INTERCONNECT``.  Comm
+        calibration is not ported, so there is no measured fit to prefer."""
+        return CC.interconnect_for(self.device)
 
     # ----- per-op -----
     def _matmul_table(self, op: og.MatmulOp,
@@ -77,6 +86,11 @@ class PM2Lat:
         return self.memory_model.predict(op.features(),
                                          class_of(op.snippet)) * op.count
 
+    def predict_collective(self, op: CC.CollectiveOp) -> Tuple[float, str]:
+        """Seconds (incl. count) + selected ring/tree algorithm for one
+        ``CollectiveOp`` under this device's interconnect."""
+        return CC.predict_collective(op, self.interconnect)
+
     def predict_op(self, op) -> PredictionRow:
         if op.kind in ("matmul", "bmm"):
             t = self._matmul_table(op, None)
@@ -91,11 +105,14 @@ class PM2Lat:
             t = self._attention_table(op, None)
             sec = op.flops / t.interpolate_throughput(op.skv)
             return PredictionRow(op.name, "attention", sec, t.key.kernel)
+        if op.kind == "collective":
+            sec, algo = self.predict_collective(op)
+            return PredictionRow(op.name, "collective", sec, algo)
         if op.kind == "memory":
             return PredictionRow(op.name, "memory", self.predict_memory(op),
                                  "linreg")
         raise NotImplementedError(
-            f"{op.kind!r} ops are priced by a later slice of the port")
+            f"no pricing for {op.kind!r} ops")
 
     # ----- model level -----
     def predict_ops(self, ops: List) -> Tuple[float, List[PredictionRow]]:

@@ -18,6 +18,7 @@ from repro.core import oracle as jor  # noqa: E402
 from repro.core import table as jtab  # noqa: E402
 from repro.core.predictor import PM2Lat as JPM2Lat  # noqa: E402
 from repro_torch.core import device as tdevice  # noqa: E402
+from repro_torch.core.devices.profiles import H100_SXM  # noqa: E402
 from repro_torch.core import memory_model as tmm  # noqa: E402
 from repro_torch.core import opgraph as tog  # noqa: E402
 from repro_torch.core import oracle as tor  # noqa: E402
@@ -246,7 +247,8 @@ def test_peak_lookup_matches_reference():
             jdevice.peak_lookup(peaks, dt, "t")
     with pytest.raises(KeyError):
         tdevice.peak_lookup(peaks, "int4", "t", strict=True)
-    assert tdevice.H100_SXM.peak("bfloat16") == 989e12
+    assert H100_SXM.peak("bfloat16") == 989e12
+    assert H100_SXM.peak("float32") == 67e12 and H100_SXM.hbm_bw == 3.35e12
 
 
 def test_measure_host_flops_on_the_cpu():
