@@ -15,8 +15,12 @@ path: the batch engine (``core/batch_predict.py``) held against the scalar
 predictor over a (batch, seq) and a (batch, ctx) grid on the card's store,
 forwards and CUDA-graph decode steps measured at some of its points, the
 engine's speed, its prediction cache, the NAS precompute against
-``torch.matmul`` and the device fleet.  Every phase prints one JSON line;
-the full record (and the calibrated store) goes to ``chiprun_out/``.
+``torch.matmul`` and the device fleet.  Then the schedule path: the
+parallel enumeration, list-schedule simulator, strategy sweep, serving
+simulator and partition planner held against the scalar predictor and
+against the card (microbatched forwards, planned pipeline stages timed
+alone, the serving engine at capacity 1).  Every phase prints one JSON
+line; the full record (and the calibrated store) goes to ``chiprun_out/``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failing phase, a
 missing card, or a checkout without ``src/repro_torch`` (the import fails)
@@ -44,7 +48,9 @@ import torch  # noqa: E402
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import opgraph as og  # noqa: E402
+from repro_torch.core import partition  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
+from repro_torch.core import schedule as sched  # noqa: E402
 from repro_torch.core.batch_predict import (BatchPredictor,  # noqa: E402
                                             PredictionCache, config_key)
 from repro_torch.core.devices.profiles import H100_SXM  # noqa: E402
@@ -57,8 +63,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
-from repro_torch.serving.engine import DecodeGraph  # noqa: E402
+from repro_torch.serving.engine import DecodeGraph, Request  # noqa: E402
 
 MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
@@ -105,6 +112,31 @@ GRID_MEASURED = ((1, 128), (1, 1024), (4, 512), (8, 512), (8, 2048),
 GRID_DECODE_MEASURED = ((1, 512), (4, 2048), (16, 1024))
 NAS_POINTS, NAS_MAX_OPERAND = 32, 1 << 30
 PAPER_US_PER_PREDICTION = 45.0      # the paper's 0.045 ms a prediction
+# The schedule phase: the engine against the scalar predictor on a fixed
+# spec list (1e-9 relative, the JAX package's contract); the sweep against
+# the per-spec loop over SCHED_GRID (1e-9; exposed comm and bubble share,
+# which reach exact zeros, 1e-6 relative + 1e-12 absolute as the JAX
+# package's tests hold them); a trivial spec against ``predict_model``
+# (1e-12: ``sum()`` is compensated on Python 3.12, the schedule adds left
+# to right).  Measured: B 8 x S 512 in SCHED_MB sequential chunks, each
+# stage of SCHED_STAGES-way plans (SCHED_PLAN_MB microbatches) alone, and
+# the serve launcher at capacity 1 (SERVE1_ARGS), run twice: the second
+# run over fresh prompts is the one timed.
+SCHED_SPECS = (dict(tp=2), dict(tp=2, act_mode="sp"), dict(dp=2, tp=2),
+               dict(pp=2, microbatches=4),
+               dict(pp=2, microbatches=4, schedule="1f1b"),
+               dict(pp=2, microbatches=4, schedule="interleaved"),
+               dict(dp=2, tp=2, pp=2, microbatches=4))
+SCHED_GRID = dict(dp=(1, 2), tp=(1, 2, 4), pp=(1, 2), microbatches=(1, 2, 4))
+SCHED_RTOL, SCHED_TRIVIAL_RTOL = 1e-9, 1e-12
+SCHED_MB = (1, 2, 4, 8)
+SCHED_STAGES, SCHED_PLAN_MB = (2, 4), 4
+SCHED_DECODE = dict(batches=(1, 4, 8), ctxs=(512, 1024, 2048), spec=dict(tp=2))
+SERVE1_ARGS = ["--arch", MODEL, "--requests", "4", "--prompt-len", "512",
+               "--max-new", "32", "--max-batch", "1", "--temperature", "0",
+               "--compute-dtype", "bfloat16", "--seed", "0"]
+SCHED_CAPACITIES = (1, 2, 4, 8)
+SCHED_WORLDS = (8, 64)
 
 
 def emit(phase: str, **fields):
@@ -359,13 +391,25 @@ def grid_path_cases():
             for B, S in shapes if (B, S) not in have]
 
 
+def schedule_path_cases():
+    """The flash calls of the schedule path that the earlier paths lack:
+    the microbatch chunks' forwards (8 / mb, 512), which include the
+    planned stages' (8, 512) and the capacity-1 serve's prefill (1, 512)."""
+    c = cfg_registry.get(MODEL)
+    have = {(B, S) for B, S, *_ in decode_path_cases() + grid_path_cases()}
+    shapes = sorted({(BATCH // mb, SEQ) for mb in SCHED_MB})
+    return [(B, S, S, c.n_heads, c.n_kv_heads, c.head_dim, True, None, None)
+            for B, S in shapes if (B, S) not in have]
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), both configs; in
     bf16 every (config, hd) goes through TMA, and strided views (TMA) and
     tensors 2 bytes off alignment or with an odd row stride (the second
     load path) are added; then the decode and serve paths' shapes
-    (``decode_path_cases``) and the grid path's (``grid_path_cases``)."""
+    (``decode_path_cases``), the grid path's (``grid_path_cases``) and
+    the schedule path's (``schedule_path_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -383,7 +427,7 @@ def check_flash(dtypes):
         (1, 150, 201, 4, 2, 64, True, None, "offset"),   # 2 bytes off
         (1, 129, 129, 2, 1, 128, False, None, "offset"),
         (1, 100, 100, 2, 2, 32, True, None, "odd_row"),  # odd sequence stride
-    ] + decode_path_cases() + grid_path_cases()
+    ] + decode_path_cases() + grid_path_cases() + schedule_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -1063,6 +1107,12 @@ def engine_speed(cfg0, engines, dev, store):
     return out, nas_vals
 
 
+def spearman(a, b) -> float:
+    """Spearman rank correlation (ties broken by position)."""
+    rank = lambda x: np.argsort(np.argsort(x, kind="stable"), kind="stable")
+    return float(np.corrcoef(rank(a), rank(b))[0, 1])
+
+
 def nas_vs_card(vals, dname):
     """NAS_POINTS entries of ``precompute_cache``'s array ``vals``, spread
     over its sorted predictions among those whose largest operand is at
@@ -1097,8 +1147,7 @@ def nas_vs_card(vals, dname):
         points.append([m, n, k, float(vals[i]) * 1e3, t * 1e3])
     pred, meas = np.array(pred), np.array(meas)
     err = 100 * np.abs(pred - meas) / meas
-    rank = lambda x: np.argsort(np.argsort(x, kind="stable"), kind="stable")
-    rho = float(np.corrcoef(rank(pred), rank(meas))[0, 1])
+    rho = spearman(pred, meas)
     out = {"dtype": dname, "points": NAS_POINTS,
            "max_operand_bytes": NAS_MAX_OPERAND,
            "median_err_pct": float(np.median(err)),
@@ -1153,6 +1202,417 @@ def grid_fleet(cfg0, engines, store, dev, prefill):
         raise AssertionError(f"fleet: identity transfer exact={exact}, "
                              f"for_device is the engine={itself}, engine "
                              f"against scalar on h100_sxm {worst}")
+    return out
+
+
+def phase_schedule(store, serve_rec):
+    """The schedule layer on the card's store (qwen2-0.5b, float32 and
+    bf16).  Fails unless a trivial spec prices as ``predict_model``
+    (SCHED_TRIVIAL_RTOL), the engine equals ``PM2Lat`` on SCHED_SPECS, the
+    sweep equals the per-spec loop over SCHED_GRID forward and training,
+    the decode grid under a spec equals its scalar loop (SCHED_RTOL), the
+    serving simulators agree (``schedule_serving_agree``), and every
+    measured forward, stage and served request passes its check.  Reports,
+    with no limit: (a) the microbatch axis, predicted by the sweep and
+    measured as sequential chunks; (b) the planned pipeline stages,
+    predicted and timed alone; (c) the serve launcher at capacity 1 against
+    the simulator on the engine's ``serving_tables``; (d) the simulator on
+    phase ``serve``'s mix beside that phase's numbers; (e) the sweep's best
+    spec on 8 and 64 devices with its peak memory (predictions only)."""
+    dev = store.meta["device"]
+    cfg0 = cfg_registry.get(MODEL)
+    engines = {d: (PM2Lat(store, dev), BatchPredictor(store, dev))
+               for d in DTYPES}
+    agree = []
+    for d in DTYPES:
+        row = schedule_agreement(store, dataclasses.replace(
+            cfg0, compute_dtype=d), *engines[d])
+        emit("schedule_agreement", **row)
+        agree.append(row)
+    bad = [(r["dtype"], k) for r in agree for k, ok in r["checks"].items()
+           if not ok]
+    if bad:
+        raise AssertionError(f"schedule layer against its references: "
+                             f"failed {bad}")
+    microbatch, stages = schedule_measure(cfg0, engines)
+    serve1 = schedule_serve(engines["bfloat16"][1], cfg0)
+    mix8 = schedule_serve_mix(engines["bfloat16"][1], cfg0, serve_rec)
+    best = schedule_best(cfg0, engines, store)
+    return {"agreement": agree, "microbatch": microbatch, "stages": stages,
+            "serve_capacity1": serve1, "serve_mix": mix8, "best": best}
+
+
+def rel_diff(got, want) -> float:
+    """Max |got - want| / |want|; where ``want`` is 0, 0 if ``got`` is too
+    and infinite otherwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    return float(np.max(np.divide(d, np.abs(want),
+                                  out=np.where(d > 0, np.inf, 0.0),
+                                  where=want != 0)))
+
+
+def sweep_vs_loop(sw, loop):
+    """Max relative difference of the sweep's makespan and work splits to
+    the per-spec ``Schedule``s, and whether exposed comm and bubble share
+    agree within 1e-6 relative + 1e-12 absolute."""
+    want = {"seconds": [x.makespan for x in loop],
+            "compute_seconds": [x.compute_seconds for x in loop],
+            "comm_seconds": [x.comm_seconds for x in loop],
+            "sequential_seconds": [x.sequential_seconds for x in loop],
+            "max_stream_busy": [max(x.busy().values()) for x in loop]}
+    rel = max(rel_diff(getattr(sw, k), v) for k, v in want.items())
+    split = all(np.allclose(getattr(sw, k), [getattr(x, k) for x in loop],
+                            rtol=1e-6, atol=1e-12)
+                for k in ("exposed_comm_seconds", "bubble_share"))
+    return rel, split
+
+
+def schedule_agreement(store, cfg, pm, bp):
+    """One dtype: the scalar and engine entry points, the sweep against the
+    loop, the decode grid under a spec and the serving simulators."""
+    dname = cfg.compute_dtype
+    total, rows = pm.predict_model(cfg, BATCH, SEQ, dtype=dname)
+    mk, srows = pm.predict_parallel(cfg, BATCH, SEQ, og.ParallelismSpec(),
+                                    dtype=dname)
+    trivial = abs(mk - total) / total
+    fixed = []
+    for kw in SCHED_SPECS:
+        spec = og.ParallelismSpec(**kw)
+        row = {"spec": spec.tag()}
+        for fn in ("predict_parallel", "predict_step"):
+            want = getattr(pm, fn)(cfg, BATCH, SEQ, spec, dtype=dname)[0]
+            got = getattr(bp, fn)(cfg, BATCH, SEQ, spec, dtype=dname)[0]
+            row[f"{fn}_ms"] = got * 1e3
+            row[f"{fn}_rel_diff"] = abs(got - want) / want
+        fixed.append(row)
+    engine_rel = max(v for r in fixed for k, v in r.items()
+                     if k.endswith("_rel_diff"))
+    specs = sched.strategy_grid(**SCHED_GRID)
+    sweeps = {}
+    for label, train in (("forward", None),
+                         ("train", sched.TrainingStepSpec())):
+        t0 = time.perf_counter()
+        sw = bp.sweep_strategies(cfg, BATCH, SEQ, specs, train=train,
+                                 dtype=dname,
+                                 hbm_bytes=store.meta["hbm_bytes"])
+        t1 = time.perf_counter()
+        loop = [bp.schedule_parallel(cfg, BATCH, SEQ, sp, dtype=dname)
+                if train is None else
+                bp.schedule_step(cfg, BATCH, SEQ, sp, train, dtype=dname)
+                for sp in specs]
+        t2 = time.perf_counter()
+        rel, split = sweep_vs_loop(sw, loop)
+        sweeps[label] = {"specs": len(specs),
+                         "n_feasible": int(sw.feasible.sum()),
+                         "max_rel_diff": rel, "splits_agree": split,
+                         "bounds_ok": bool(sw.bounds_ok().all()),
+                         "sweep_s": t1 - t0, "loop_s": t2 - t1,
+                         "best": sw.row(sw.best())}
+    dspec = og.ParallelismSpec(**SCHED_DECODE["spec"])
+    bs, cs = SCHED_DECODE["batches"], SCHED_DECODE["ctxs"]
+    dgrid = bp.predict_decode_grid(cfg, bs, cs, dtype=dname, spec=dspec)
+    dwant = np.array([[pm.predict_ops(og.enumerate_decode_parallel_ops(
+        cfg, b, c, dspec, dtype=dname))[0] for c in cs] for b in bs])
+    drel = rel_diff(dgrid, dwant)
+    serving = schedule_serving_agree(bp, cfg)
+    checks = {"trivial_spec": trivial <= SCHED_TRIVIAL_RTOL
+              and [r.seconds for r in srows] == [r.seconds for r in rows],
+              "engine_vs_scalar": engine_rel <= SCHED_RTOL,
+              "decode_grid_spec": drel <= SCHED_RTOL,
+              **{f"sweep_{k}": v["max_rel_diff"] <= SCHED_RTOL
+                 and v["splits_agree"] and v["bounds_ok"]
+                 for k, v in sweeps.items()},
+              **serving["checks"]}
+    return {"dtype": dname, "checks": checks,
+            "trivial_rel_diff": trivial,
+            "trivial_ms": [mk * 1e3, total * 1e3],
+            "engine_vs_scalar_max_rel_diff": engine_rel, "fixed": fixed,
+            "sweeps": sweeps, "decode_spec": dspec.tag(),
+            "decode_grid_max_rel_diff": drel,
+            "decode_grid_ms": (dgrid * 1e3).tolist(), "serving": serving}
+
+
+def schedule_serving_agree(bp, cfg):
+    """On the engine's ``serving_tables`` for three mixes (phase
+    ``serve``'s, the capacity-1 serve's, and Poisson arrivals of two
+    prompt lengths): ``simulate_serving`` against the token-by-token
+    ``simulate_serving_steps`` (every time field bit for bit; occupancy,
+    whose additions run per run against per step, 1e-9 relative), and
+    ``simulate_serving_batch`` over SCHED_CAPACITIES against the scalar
+    calls (every field bit for bit)."""
+    dname = cfg.compute_dtype
+    mixes = [sched.TrafficMix((SEQ,), (32,), n_requests=16),
+             sched.TrafficMix((SEQ,), (32,), n_requests=4),
+             sched.TrafficMix((128, SEQ), (8, 32), arrival_rate=50.0,
+                              n_requests=32)]
+    steps_ok = batch_ok = True
+    occ_bitwise = True
+    cap = max(SCHED_CAPACITIES)
+    for mix in mixes:
+        tab = bp.serving_tables(cfg, mix, capacity=cap, dtype=dname)
+        scalar = [sched.simulate_serving(mix, c, tab.prefill, tab.decode)
+                  for c in SCHED_CAPACITIES]
+        for c, fast in zip(SCHED_CAPACITIES, scalar):
+            slow = sched.simulate_serving_steps(mix, c, tab.prefill,
+                                                tab.decode)
+            for f in sched.ServingStats.FIELDS:
+                a, b = getattr(fast, f), getattr(slow, f)
+                if f == "occupancy":
+                    steps_ok &= bool(np.isclose(a, b, rtol=1e-9, atol=0))
+                    occ_bitwise &= a == b
+                else:
+                    steps_ok &= a == b
+        batch = sched.simulate_serving_batch(mix, SCHED_CAPACITIES,
+                                             [tab] * len(SCHED_CAPACITIES))
+        batch_ok &= batch == scalar
+    return {"mixes": [m.tag() for m in mixes],
+            "occupancy_bitwise": bool(occ_bitwise),
+            "checks": {"serving_event_vs_steps": bool(steps_ok),
+                       "serving_batch_vs_scalar": bool(batch_ok)}}
+
+
+def schedule_measure(cfg0, engines):
+    """qwen2-0.5b with random weights (seed 0), float32 then bf16: (a) B 8
+    x S 512 as mb sequential forwards of 8 / mb, against the sweep's
+    ``ParallelismSpec(microbatches=mb)``; (b) each stage of the plan
+    ``plan_stages_model`` makes for SCHED_STAGES stages (SCHED_PLAN_MB
+    microbatches), its blocks driven alone on a random (8, 512, d) hidden
+    state with RoPE factors for positions 0..511, against the stage's
+    predicted blocks (``predict_blocks`` strips embed, final norm and
+    unembed, and so does the timing).  Fails unless every forward gives
+    finite logits of the right shape with one flash launch a layer, and
+    every stage finite output with one a block."""
+    model = model_registry.build(dataclasses.replace(
+        cfg0, compute_dtype="float32"), device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg0.vocab_size, (BATCH, SEQ), generator=gen,
+                           device="cuda")
+    hidden = torch.randn(BATCH, SEQ, cfg0.d_model, generator=gen,
+                         device="cuda")
+    rope = attn.rope_tables(torch.arange(SEQ, device="cuda")[None, :],
+                            cfg0.head_dim, cfg0.rope_theta)
+    microbatch, stages = [], []
+    for dname in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        cdt = getattr(torch, dname)
+        model.cfg = cfg
+        if dname == "bfloat16":
+            model.cast_weights_(torch.bfloat16)
+        pm, bp = engines[dname]
+        sw = bp.sweep_strategies(cfg, BATCH, SEQ, [
+            og.ParallelismSpec(microbatches=m) for m in SCHED_MB],
+            dtype=dname)
+        rows = []
+        with torch.no_grad():
+            for m, pred in zip(SCHED_MB, sw.seconds):
+                chunks = tokens.chunk(m)
+
+                def run(chunks=chunks):
+                    for c in chunks:
+                        model(c)
+
+                before = fk.flash_attention_kernel.launches
+                outs = [model(c) for c in chunks]
+                torch.cuda.synchronize()
+                flash = fk.flash_attention_kernel.launches - before
+                ok = (all(bool(torch.isfinite(o).all()) for o in outs)
+                      and [list(o.shape) for o in outs]
+                      == [[BATCH // m, SEQ, model.padded_vocab]] * m
+                      and flash == cfg.n_layers * m)
+                del outs
+                meas = profiler.measure(run)
+                rows.append({"dtype": dname, "microbatches": m,
+                             "chunk": [BATCH // m, SEQ],
+                             "predicted_ms": float(pred) * 1e3,
+                             "measured_ms": meas * 1e3,
+                             "err_pct": 100 * abs(pred - meas) / meas,
+                             "flash_launches": flash, "ok": ok})
+                if not ok:
+                    raise AssertionError(f"microbatch forward {rows[-1]}")
+            x = hidden.to(cdt)
+            for n in SCHED_STAGES:
+                stages.append(stage_record(model, pm, cfg, cdt, x, rope, n))
+                emit("schedule_stages", **stages[-1])
+        rec = {"dtype": dname, "rows": rows,
+               "spearman_rho": spearman([r["predicted_ms"] for r in rows],
+                                        [r["measured_ms"] for r in rows])}
+        emit("schedule_microbatch", **rec)
+        microbatch.append(rec)
+    del model
+    torch.cuda.empty_cache()
+    return microbatch, stages
+
+
+def stage_record(model, pm, cfg, cdt, x, rope, n_stages):
+    """One ``plan_stages_model`` plan, each stage's blocks timed alone."""
+    dname = cfg.compute_dtype
+    plan, blocks = partition.plan_stages_model(
+        pm, cfg, BATCH, SEQ, n_stages=n_stages, microbatches=SCHED_PLAN_MB,
+        dtype=dname)
+    rows = []
+    for i, (a, b) in enumerate(zip(plan.boundaries, plan.boundaries[1:])):
+        def run(a=a, b=b):
+            y = x
+            for blk in model.blocks[a:b]:
+                y, _ = blk(y, cfg, cdt, rope)
+            return y
+
+        before = fk.flash_attention_kernel.launches
+        y = run()
+        torch.cuda.synchronize()
+        flash = fk.flash_attention_kernel.launches - before
+        ok = (bool(torch.isfinite(y).all()) and list(y.shape) == list(x.shape)
+              and flash == b - a)
+        del y
+        if not ok:
+            raise AssertionError(f"stage {i} of {n_stages} ({a}, {b}) "
+                                 f"{dname}: {flash} flash launches")
+        meas = profiler.measure(run) if b > a else 0.0
+        pure = sum(blocks[a:b])
+        rows.append({"blocks": [a, b], "predicted_ms": plan.stage_times[i]
+                     * 1e3, "predicted_blocks_ms": pure * 1e3,
+                     "measured_ms": meas * 1e3,
+                     "err_pct": 100 * abs(pure - meas) / meas if meas else None})
+    ratio = lambda v: max(v) / min(v)
+    live = [r for r in rows if r["blocks"][1] > r["blocks"][0]]
+    return {"dtype": dname, "n_stages": n_stages,
+            "microbatches": SCHED_PLAN_MB, "boundaries": plan.boundaries,
+            "bottleneck_ms": plan.bottleneck * 1e3,
+            "makespan_ms": plan.makespan * 1e3, "stages": rows,
+            "measured_max_min": ratio([r["measured_ms"] for r in live]),
+            "predicted_blocks_max_min": ratio(
+                [r["predicted_blocks_ms"] for r in live]),
+            "predicted_max_min": ratio([r["predicted_ms"] for r in live])}
+
+
+def schedule_serve(bp, cfg0):
+    """The serve launcher at capacity 1 (SERVE1_ARGS), then the same engine
+    (its decode graph captured) over fresh prompts, timed from the second
+    run's request timestamps; against ``simulate_serving`` on the engine's
+    ``serving_tables`` for the same mix.  Both schedule one prefill and
+    then max_new - 1 decode steps, request after request, every request
+    submitted at 0.  Fails unless every request of both runs ends with
+    max_new tokens and the flash kernel launched once a layer a prefill."""
+    args = serve_launcher.parse_args(SERVE1_ARGS)
+    cfg = dataclasses.replace(cfg0, compute_dtype=args.compute_dtype)
+    before = fk.flash_attention_kernel.launches
+    engine, first = serve_launcher.serve(args)
+    rng = np.random.default_rng(args.seed + 1)
+    reqs = [Request(rid=args.requests + i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        size=args.prompt_len).astype(np.int32),
+                    max_new_tokens=args.max_new,
+                    temperature=args.temperature)
+            for i in range(args.requests)]
+    done = engine.run(reqs)
+    flash = fk.flash_attention_kernel.launches - before
+    wall = engine.wall_s
+    del engine
+    torch.cuda.empty_cache()
+    t0 = min(r.t_submit for r in done)
+    ttft = np.array([r.t_first_token - r.t_submit for r in done])
+    tpot = np.array([(r.t_done - r.t_first_token) / (len(r.out_tokens) - 1)
+                     for r in done])
+    ends = [t0] + [r.t_done for r in done]
+    prefill = np.array([r.t_first_token - e for r, e in zip(done, ends)])
+    makespan = max(r.t_done for r in done) - t0
+    tokens = sum(len(r.out_tokens) for r in done)
+    mix = sched.TrafficMix((args.prompt_len,), (args.max_new,),
+                           n_requests=args.requests)
+    tab = bp.serving_tables(cfg, mix, capacity=args.max_batch,
+                            dtype=args.compute_dtype)
+    st, det = sched.simulate_serving(mix, args.max_batch, tab.prefill,
+                                     tab.decode, return_detail=True)
+    pct = lambda v, q: float(np.percentile(v, q)) * 1e3
+    err = lambda p, m: 100 * abs(p - m) / m
+    meas = {"ttft_ms": (ttft * 1e3).tolist(),
+            "ttft_p50_ms": pct(ttft, 50), "ttft_p95_ms": pct(ttft, 95),
+            "tpot_p50_ms": pct(tpot, 50), "tpot_p95_ms": pct(tpot, 95),
+            "prefill_ms": (prefill * 1e3).tolist(),
+            "makespan_ms": makespan * 1e3, "tokens_per_s": tokens / makespan}
+    pred = {"ttft_ms": (det["ttft"] * 1e3).tolist(),
+            "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+            "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+            "prefill_ms": tab.prefill[args.prompt_len] * 1e3,
+            "makespan_ms": st.makespan * 1e3,
+            "tokens_per_s": st.tokens_per_sec}
+    rec = {"args": SERVE1_ARGS, "mix": mix.tag(), "measured": meas,
+           "predicted": pred,
+           "err_pct": {k: err(pred[k], meas[k]) for k in
+                       ("ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms",
+                        "tpot_p95_ms", "makespan_ms", "tokens_per_s")},
+           "flash_launches": flash, "wall_s": wall}
+    emit("schedule_serve", **rec)
+    counts = sorted({len(r.out_tokens) for r in first + done})
+    want = cfg.n_layers * 2 * args.requests
+    if counts != [args.max_new] or flash != want:
+        raise AssertionError(f"capacity-1 serve: tokens each {counts}, "
+                             f"flash launches {flash} (expected {want})")
+    return rec
+
+
+def schedule_serve_mix(bp, cfg0, serve_rec):
+    """The simulator on phase ``serve``'s mix (16 x 512, 32 new, capacity
+    8, bf16) beside that phase's measured numbers.  A different schedule:
+    the engine prefills a wave of 8 at once and decodes it in lockstep, the
+    simulator prefills one slot at a time (its TPOT carries the other
+    slots' prefills); only TPOT is like for like, and the engine's first
+    wave also carries the decode graph's capture, so its last wave's TPOT
+    is the steady one."""
+    args = serve_launcher.parse_args(SERVE_ARGS)
+    cfg = dataclasses.replace(cfg0, compute_dtype=args.compute_dtype)
+    mix = sched.TrafficMix((args.prompt_len,), (args.max_new,),
+                           n_requests=args.requests)
+    tab = bp.serving_tables(cfg, mix, capacity=args.max_batch,
+                            dtype=args.compute_dtype)
+    st = sched.simulate_serving(mix, args.max_batch, tab.prefill, tab.decode)
+    rec = {"schedule": "simulator: one prefill a slot; engine: a wave of "
+                       "8 prefilled at once", "like_for_like": "tpot",
+           "simulated": {k: v * 1e3 if k.startswith(("ttft", "tpot",
+                                                     "latency", "makespan"))
+                         else v for k, v in st.to_entry().items()},
+           "serve_phase": {k: serve_rec[k] for k in
+                           ("ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms",
+                            "tpot_p95_ms", "throughput_tok_s")},
+           "serve_phase_steady_tpot_ms": serve_rec["wave_tpot_ms"][-1]}
+    for name, meas in (("tpot_p50", serve_rec["tpot_p50_ms"]),
+                       ("steady_tpot", rec["serve_phase_steady_tpot_ms"])):
+        rec[f"{name}_err_pct"] = 100 * abs(st.tpot_p50 * 1e3 - meas) / meas
+    emit("schedule_serve_mix", **rec)
+    return rec
+
+
+def schedule_best(cfg0, engines, store):
+    """Predictions one card cannot check: the sweep's fastest feasible
+    forward spec at (8, 512) using all of 8 and of 64 devices, with its
+    peak memory (``peak_memory_bytes``, equal to the sweep's column), on
+    the card's store (whose device name has no registered interconnect, so
+    collectives are priced over ``DEFAULT_INTERCONNECT``) and re-anchored
+    to the datasheet ``h100_sxm`` (NVLink)."""
+    out = []
+    for world in SCHED_WORLDS:
+        specs = [s for s in sched.strategy_grid(
+            dp=(1, 2, 4, 8), tp=(1, 2, 4, 8), pp=(1, 2, 4, 8),
+            microbatches=(1, 2, 4, 8), act_modes=("tp", "sp"),
+            schedules=og.SCHEDULE_KINDS, max_world=world)
+            if s.world == world]
+        for dname in DTYPES:
+            cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+            for device in (store.meta["device"], H100_SXM.name):
+                sw = engines[dname][1].sweep_strategies(
+                    cfg, BATCH, SEQ, specs, dtype=dname, device=device,
+                    hbm_bytes=store.meta["hbm_bytes"])
+                i = sw.best()
+                peak = sched.peak_memory_bytes(cfg, BATCH, SEQ, specs[i],
+                                               dtype=dname)
+                row = {"world": world, "dtype": dname, "device": device,
+                       "specs": len(specs),
+                       "n_feasible": int(sw.feasible.sum()), **sw.row(i),
+                       "peak_memory_bytes": peak,
+                       "peak_equals_sweep": peak == float(sw.peak_bytes[i])}
+                emit("schedule_best", **row)
+                out.append(row)
     return out
 
 
@@ -1408,8 +1868,11 @@ def main() -> int:
     reset_launches()
     grid = phase_grid(store)
     by_path["grid"] = hand_launches()
+    reset_launches()
+    schedule = phase_schedule(store, serving)
+    by_path["schedule"] = hand_launches()
     emit("path_launches", **by_path)
-    for path in ("decode", "serve", "grid"):
+    for path in ("decode", "serve", "grid", "schedule"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -1426,7 +1889,7 @@ def main() -> int:
     emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
-                  kernels=kernels,
+                  schedule=schedule, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -31,12 +31,13 @@ later sweeps are pure numpy (``_feat_cache``).
 ``(model, device, dtype, batch, seq)``; ``predict_model_cached`` sits on
 top of it.
 
-A copy of the JAX package's engine without its schedule-bound methods
-(parallel, training-step, strategy-sweep and serving-table prediction),
-which come with the schedule slice.  Every vectorized path reproduces the
-scalar predictor's floating-point operation ORDER, so results match
-``PM2Lat.predict_op`` to ~ulp, and the JAX package's engine bit for bit on
-the same store and feature rows.
+Parallel, training-step, strategy-sweep and serving-table prediction go
+through ``core/schedule.py``, priced by this engine.  Every vectorized path
+reproduces the scalar predictor's floating-point operation ORDER, so
+results match ``PM2Lat.predict_op`` to ~ulp, and the JAX package's engine
+bit for bit on the same store and feature rows.  The JAX engine's
+spec-keyed, dict-valued cache entries and its multi-dtype model grid serve
+only its latency service, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -592,6 +593,73 @@ class BatchPredictor:
         ops = og.enumerate_ops(cfg, batch, seq, dtype=dtype)
         return self.predict_ops(ops)
 
+    def predict_parallel(self, cfg: C.ModelConfig, batch: int, seq: int,
+                         spec: og.ParallelismSpec,
+                         dtype: Optional[str] = None,
+                         device: Optional[str] = None):
+        """Schedule-aware end-to-end prediction under a ``ParallelismSpec``
+        (the vectorized twin of ``PM2Lat.predict_parallel``): the makespan
+        of the list schedule over the sharded compute ops plus the induced
+        collectives, and its rows."""
+        sched = self.schedule_parallel(cfg, batch, seq, spec, dtype=dtype,
+                                       device=device)
+        return sched.makespan, sched.rows
+
+    def schedule_parallel(self, cfg: C.ModelConfig, batch: int, seq: int,
+                          spec: og.ParallelismSpec,
+                          dtype: Optional[str] = None,
+                          device: Optional[str] = None):
+        """The full ``Schedule`` (timeline + busy/exposed splits) behind
+        ``predict_parallel``."""
+        if device is not None and device != self.device:
+            return self.for_device(device).schedule_parallel(
+                cfg, batch, seq, spec, dtype=dtype)
+        from repro_torch.core import schedule as S
+        return S.schedule_parallel(self, cfg, batch, seq, spec, dtype=dtype)
+
+    def predict_step(self, cfg: C.ModelConfig, batch: int, seq: int,
+                     spec: Optional[og.ParallelismSpec] = None, train=None,
+                     dtype: Optional[str] = None,
+                     device: Optional[str] = None):
+        """One training step (fwd + bwd + gradient comm + optimizer
+        update) priced as the schedule makespan: the vectorized twin of
+        ``PM2Lat.predict_step``."""
+        sched = self.schedule_step(cfg, batch, seq, spec=spec, train=train,
+                                   dtype=dtype, device=device)
+        return sched.makespan, sched.rows
+
+    def schedule_step(self, cfg: C.ModelConfig, batch: int, seq: int,
+                      spec: Optional[og.ParallelismSpec] = None, train=None,
+                      dtype: Optional[str] = None,
+                      device: Optional[str] = None):
+        """The full training-step ``Schedule`` behind ``predict_step``."""
+        if device is not None and device != self.device:
+            return self.for_device(device).schedule_step(
+                cfg, batch, seq, spec=spec, train=train, dtype=dtype)
+        from repro_torch.core import schedule as S
+        return S.schedule_step(self, cfg, batch, seq, spec=spec, train=train,
+                               dtype=dtype)
+
+    def sweep_strategies(self, cfg: C.ModelConfig, batch: int, seq: int,
+                         specs: Sequence[og.ParallelismSpec], *,
+                         train=None, dtype: Optional[str] = None,
+                         hbm_bytes: Optional[float] = None,
+                         device: Optional[str] = None):
+        """Price many parallelism strategies in one vectorized pass
+        (``schedule.sweep_strategies``): unique op components enumerated
+        once, priced through one ``predict_ops_seconds`` call, and
+        simulated per structural template by the batched list schedule.
+        ``train`` (None | TrainingStepSpec | per-spec sequence) switches to
+        training steps; ``hbm_bytes`` adds the ``feasible`` mask against
+        the peak-memory column."""
+        if device is not None and device != self.device:
+            return self.for_device(device).sweep_strategies(
+                cfg, batch, seq, specs, train=train, dtype=dtype,
+                hbm_bytes=hbm_bytes)
+        from repro_torch.core import schedule as S
+        return S.sweep_strategies(self, cfg, batch, seq, specs, train=train,
+                                  dtype=dtype, hbm_bytes=hbm_bytes)
+
     def predict_blocks(self, cfg: C.ModelConfig, batch: int, seq: int,
                        dtype: Optional[str] = None,
                        device: Optional[str] = None) -> List[float]:
@@ -676,23 +744,30 @@ class BatchPredictor:
     def predict_decode_grid(self, cfg: C.ModelConfig,
                             batches: Sequence[int], ctxs: Sequence[int],
                             dtype: Optional[str] = None,
-                            device: Optional[str] = None) -> np.ndarray:
+                            device: Optional[str] = None,
+                            spec: Optional[og.ParallelismSpec] = None
+                            ) -> np.ndarray:
         """Per-decode-step latency over the (batch, ctx) grid — the decode
         twin of ``predict_model_grid``.  ONE decode enumeration per batch
         with ``ctx`` passed as an array: only the KV-cache-read attention
         ops vary with ctx (their skv/flops broadcast over the grid); every
-        other decode op — skinny matmuls, KV appends, recurrent steps — is
-        ctx-independent and priced once.  Returns a
-        ``(len(batches), len(ctxs))`` float array of per-step seconds."""
+        other decode op — skinny matmuls, KV appends, recurrent steps,
+        induced collectives — is ctx-independent and priced once.  Returns
+        a ``(len(batches), len(ctxs))`` float array of per-step seconds;
+        ``spec`` shards the step (``enumerate_decode_parallel_ops``)."""
         if device is not None and device != self.device:
             return self.for_device(device).predict_decode_grid(
-                cfg, batches, ctxs, dtype=dtype)
+                cfg, batches, ctxs, dtype=dtype, spec=spec)
         batches = np.asarray(list(batches), np.int64)
         ctx = np.asarray(list(ctxs), np.int64)
         out = np.empty((batches.size, ctx.size))
         coef = self._memory_coef("softmax")
         for bi, b in enumerate(batches):
-            ops = og.enumerate_decode_ops(cfg, int(b), ctx, dtype=dtype)
+            if spec is None:
+                ops = og.enumerate_decode_ops(cfg, int(b), ctx, dtype=dtype)
+            else:
+                ops = og.enumerate_decode_parallel_ops(cfg, int(b), ctx,
+                                                       spec, dtype=dtype)
             varying = [op for op in ops
                        if isinstance(op, og.AttentionOp)
                        and isinstance(op.skv, np.ndarray)]
@@ -712,6 +787,33 @@ class BatchPredictor:
                 var += (X * coef).sum(axis=1)
             out[bi] = base + var
         return out
+
+    def serving_tables(self, cfg: C.ModelConfig, mix, *, capacity: int,
+                       dtype: Optional[str] = None,
+                       spec: Optional[og.ParallelismSpec] = None,
+                       device: Optional[str] = None):
+        """One serving point's latency substrate (``schedule.ServingTables``)
+        in two vectorized passes: a prefill entry per distinct prompt length
+        (``predict_model`` at batch 1, or the ``schedule_parallel`` makespan
+        under a spec) and ONE ``predict_decode_grid`` call covering
+        ``(1..capacity, 1..mix.max_ctx)``.  The grid rows are
+        batch-independent, so a max-capacity table serves every smaller
+        capacity bit-identically."""
+        if device is not None and device != self.device:
+            return self.for_device(device).serving_tables(
+                cfg, mix, capacity=capacity, dtype=dtype, spec=spec)
+        from repro_torch.core import schedule as S
+        pre: Dict[int, float] = {}
+        for p in sorted(set(int(p) for p in mix.prompt_lens)):
+            if spec is None:
+                pre[p] = float(self.predict_model(cfg, 1, p, dtype=dtype)[0])
+            else:
+                pre[p] = float(self.schedule_parallel(cfg, 1, p, spec,
+                                                      dtype=dtype).makespan)
+        grid = self.predict_decode_grid(cfg, np.arange(1, int(capacity) + 1),
+                                        np.arange(1, mix.max_ctx + 1),
+                                        dtype=dtype, spec=spec)
+        return S.ServingTables(prefill=pre, decode=grid)
 
     # ----- cached interface -----
     def predict_model_cached(self, cfg: C.ModelConfig, batch: int, seq: int,

@@ -6,8 +6,17 @@ matmul-family op with its (batch, M, N, K), every attention call with its
 geometry, every memory-bound op as a torch snippet whose proxy features come
 from ``core/cost.py`` (cached by shape).  The enumeration is the JAX
 package's, op for op; only the snippets and their features are torch.
-A decode step (one token a request against a KV cache) is enumerated too;
-the parallel enumerations come with the collectives slice.
+A decode step (one token a request against a KV cache) is enumerated too.
+
+The primary representation is a typed ``OpGraph``: nodes carry an
+execution ``stream`` (``'compute'`` | ``'comm'``; pipeline builders use
+suffixed labels like ``'compute.s1'``) and explicit dependency edges, so
+``core/schedule.py`` can price a model as the makespan of a list schedule
+instead of a sequential sum.  ``enumerate_parallel_ops`` and
+``enumerate_decode_parallel_ops`` expand a model into one rank's op list
+under a ``ParallelismSpec``: every compute op sharded by the JAX package's
+name-pattern rules plus the induced ``CollectiveOp``s.  The rules match on
+op names, so the names here are the JAX package's letter for letter.
 """
 from __future__ import annotations
 
@@ -103,6 +112,28 @@ def stream_of(op: Op) -> str:
     return COMM_STREAM if isinstance(op, CollectiveOp) else COMPUTE_STREAM
 
 
+def activation_bytes(op: Op) -> float:
+    """Bytes of output activation a backward pass must keep live for ``op``
+    (output elements × dtype size × count): the per-op term of
+    ``schedule.peak_memory_bytes``.  Collectives produce no new tensor, and
+    the ``embed_gather`` snippet's shape is the embedding table (its (T, d)
+    output is the hidden state the first ``ln``/``residual`` ops already
+    count), so both contribute 0."""
+    esz = dtype_bytes(op.dtype) if not isinstance(op, CollectiveOp) else 0
+    if isinstance(op, MatmulOp):
+        return float(op.batch) * op.m * op.n * esz * op.count
+    if isinstance(op, AttentionOp):
+        return float(op.batch) * op.heads * op.sq * op.hd * esz * op.count
+    if isinstance(op, MemoryOp):
+        if op.snippet == "embed_gather":
+            return 0.0
+        n = 1.0
+        for d in op.shape:
+            n *= d
+        return n * esz * op.count
+    return 0.0
+
+
 @dataclasses.dataclass
 class OpNode:
     """One node of the schedule-aware IR: an op, the stream it executes on,
@@ -154,8 +185,9 @@ class OpGraph:
 
     @classmethod
     def chain(cls, ops: Sequence[Op]) -> "OpGraph":
-        """A fully serialized graph — the classic sequential-sum op list.
-        Scheduling it reproduces ``sum(op seconds)`` bit for bit."""
+        """A fully serialized graph: the classic sequential-sum op list.
+        Scheduling it adds the op seconds left to right (Python 3.12's
+        ``sum()`` is compensated and can differ in the last bits)."""
         g = cls()
         g.add_chain(ops)
         return g
@@ -471,6 +503,34 @@ def enumerate_ops(cfg: C.ModelConfig, batch: int, seq: int,
     return enumerate_graph(cfg, batch, seq, dtype=dtype).ops()
 
 
+def layer_segments(cfg: C.ModelConfig, batch: int, seq: int,
+                   dtype: Optional[str] = None
+                   ) -> Tuple[List[Op], List[List[Op]], List[Op]]:
+    """Per-layer forward segmentation for pipeline staging:
+    ``(head_ops, [ops per layer in positional order], tail_ops)``.  Each
+    layer is re-enumerated as a single-layer config (the move
+    ``predict_blocks`` makes); ``head`` carries the embedding plus the
+    whole encoder stack, ``tail`` the final norm + unembed."""
+    segs = dict(_forward_segments(cfg, batch, seq, dtype=dtype))
+    head = list(segs["head"]) + list(segs.get("encoder", []))
+    tail = list(segs["tail"])
+    ctx = cfg.cross_attn_context_len or (
+        cfg.encoder.n_frames if cfg.encoder else 0)
+    per_layer: List[List[Op]] = []
+    for kind in cfg.layer_kinds:
+        one = dataclasses.replace(cfg, n_layers=1, block_pattern=(kind,),
+                                  encoder=None, cross_attn_context_len=ctx)
+        ops = [op for label, seg in _forward_segments(one, batch, seq,
+                                                      dtype=dtype)
+               if label.startswith("group:") for op in seg]
+        per_layer.append(ops)
+    return head, per_layer, tail
+
+
+def total_flops(ops: List[Op]) -> float:
+    return sum(getattr(o, "flops", 0.0) for o in ops)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -625,3 +685,298 @@ def enumerate_decode_ops(cfg: C.ModelConfig, batch: int, ctx,
     ``ctx``: the flat view over ``enumerate_decode_graph``."""
     return [op for _, seg in _decode_segments(cfg, batch, ctx, dtype=dtype)
             for op in seg]
+
+
+def enumerate_decode_parallel_ops(cfg: C.ModelConfig, batch: int, ctx,
+                                  spec: "ParallelismSpec",
+                                  dtype: Optional[str] = None) -> List[Op]:
+    """One rank's decode-step op list under ``spec``: the name-pattern tp
+    sharding of ``enumerate_parallel_ops`` (decode ops reuse the prefill op
+    names) plus the induced collectives of a one-token forward
+    (``seq = 1``).  ``spec.trivial`` returns ``enumerate_decode_ops``."""
+    if spec.trivial:
+        return enumerate_decode_ops(cfg, batch, ctx, dtype=dtype)
+    dt = dtype or "float32"
+    bsh = _ceil_div(batch, spec.dp)
+    ops = [_shard_op(op, spec)
+           for op in enumerate_decode_ops(cfg, bsh, ctx, dtype=dtype)]
+    return ops + _induced_collectives(cfg, bsh, 1, spec, dt)
+
+
+# ---------------------------------------------------------------------------
+# Parallelism-aware expansion (paper §IV-D, multi-device planning)
+# ---------------------------------------------------------------------------
+# A ParallelismSpec names the logical mesh axes ('dp' over data, 'tp' over
+# model, act_mode 'tp'|'sp') plus a pipeline degree.
+# ``enumerate_parallel_ops`` expands a model into ONE RANK's op list: each
+# compute op sharded by name-pattern rules, plus the induced CollectiveOps
+# (priced by core/collectives.py).
+
+SCHEDULE_KINDS = ("gpipe", "1f1b", "interleaved")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelismSpec:
+    """(dp, tp, pp) degrees + activation-sharding mode at block boundaries
+    ('tp' = Megatron tensor parallel, hidden states replicated over the tp
+    axis; 'sp' = Megatron sequence parallel, hidden states sharded over
+    sequence: all-reduces become reduce-scatter + all-gather pairs).
+
+    ``microbatches`` splits one rank's batch into that many sequential
+    chunks: under ``pp > 1`` they pipeline across stages (the bubble
+    emerges from ``core/schedule.py``'s list schedule); under ``pp == 1``
+    they are chunked execution back to back.  The flat
+    ``enumerate_parallel_ops`` view ignores it.
+
+    ``schedule`` picks the pipeline schedule: ``'gpipe'``, ``'1f1b'``
+    (one-forward-one-backward; forward-only graphs under it are GPipe) or
+    ``'interleaved'`` (``schedule.VIRTUAL_STAGES`` chunks per device)."""
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1
+    act_mode: str = "tp"          # 'tp' | 'sp'
+    microbatches: int = 1
+    schedule: str = "gpipe"       # 'gpipe' | '1f1b' | 'interleaved'
+
+    def __post_init__(self):
+        if min(self.dp, self.tp, self.pp) < 1:
+            raise ValueError(f"parallel degrees must be >= 1: {self}")
+        if self.act_mode not in ("tp", "sp"):
+            raise ValueError(f"act_mode must be 'tp' or 'sp': {self.act_mode!r}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1: {self.microbatches}")
+        if self.schedule not in SCHEDULE_KINDS:
+            raise ValueError(f"schedule must be one of {SCHEDULE_KINDS}: "
+                             f"{self.schedule!r}")
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.tp * self.pp
+
+    @property
+    def trivial(self) -> bool:
+        return self.world == 1
+
+    def tag(self) -> str:
+        """Stable fingerprint for cache keys / report rows (the JAX
+        package's, character for character).  The microbatch degree and
+        schedule kind are appended only when non-default."""
+        base = f"dp{self.dp}.tp{self.tp}.pp{self.pp}.{self.act_mode}"
+        if self.microbatches != 1:
+            base += f".mb{self.microbatches}"
+        if self.schedule != "gpipe":
+            base += f".{self.schedule}"
+        return base
+
+
+def _ceil_div(x: int, t: int) -> int:
+    return max(-(-int(x) // int(t)), 1)
+
+
+# Name-pattern sharding rules: column-parallel projections shard the output
+# dim (n), row-parallel shard the contraction dim (k) and end in a partial
+# sum the tp group must reduce.
+_COL_SUFFIXES = (".wq", ".wk", ".wv", ".w_in", ".w_gate", ".up", ".wx",
+                 ".rh", ".qkvo")
+_ROW_SUFFIXES = (".wo", ".w_out", ".down")
+_INNER_SUFFIXES = (".qkv", ".gates")      # square maps on the sharded width
+_SEQ_SUFFIXES = (".ln", ".ln2", ".residual")   # hidden (T, d) activations
+_ACT_SUFFIXES = (".act", ".expert_act", ".gate_mul", ".scan", ".conv",
+                 ".kv_append", ".step")   # decode-phase per-head/width state
+
+
+def _shard_matmul(op: MatmulOp, tp: int) -> MatmulOp:
+    nm = op.name
+    if nm == "unembed" or any(nm.endswith(s) for s in _COL_SUFFIXES):
+        return dataclasses.replace(op, n=_ceil_div(op.n, tp))
+    if any(nm.endswith(s) for s in _ROW_SUFFIXES):
+        return dataclasses.replace(op, k=_ceil_div(op.k, tp))
+    if any(nm.endswith(s) for s in _INNER_SUFFIXES):
+        return dataclasses.replace(op, n=_ceil_div(op.n, tp),
+                                   k=_ceil_div(op.k, tp))
+    # MoE: experts shard over the tp axis
+    if nm.endswith(".dispatch"):
+        return dataclasses.replace(op, m=_ceil_div(op.m, tp))
+    if nm.endswith(".expert_in") or nm.endswith(".expert_out") \
+            or nm.endswith(".state"):
+        return dataclasses.replace(op, batch=_ceil_div(op.batch, tp))
+    if nm.endswith(".combine"):
+        return dataclasses.replace(op, k=_ceil_div(op.k, tp))
+    return op
+
+
+def _shard_attention(op: AttentionOp, tp: int) -> AttentionOp:
+    return dataclasses.replace(op, heads=_ceil_div(op.heads, tp),
+                               kv_heads=_ceil_div(op.kv_heads, tp))
+
+
+def _shard_memory(op: MemoryOp, tp: int, act_mode: str) -> MemoryOp:
+    nm, shape = op.name, op.shape
+    if nm == "embed":                     # vocab-parallel embedding table
+        return dataclasses.replace(op, shape=(_ceil_div(shape[0], tp),)
+                                   + shape[1:])
+    if nm.endswith(".rope"):              # (T, heads, hd): heads sharded
+        return dataclasses.replace(
+            op, shape=(shape[0], _ceil_div(shape[1], tp)) + shape[2:])
+    if nm == "mlstm.gate" or any(nm.endswith(s) for s in _ACT_SUFFIXES):
+        # activations between a column- and a row-parallel projection:
+        # the feature dim is sharded in both act modes
+        return dataclasses.replace(op, shape=shape[:-1]
+                                   + (_ceil_div(shape[-1], tp),))
+    if act_mode == "sp" and (nm == "final_norm"
+                             or any(nm.endswith(s) for s in _SEQ_SUFFIXES)):
+        # sequence parallelism shards the (T, d) hidden states over tp
+        return dataclasses.replace(op, shape=(_ceil_div(shape[0], tp),)
+                                   + shape[1:])
+    return op                             # replicated ('tp' mode hiddens,
+                                          # router softmax, ...)
+
+
+def _shard_op(op: Op, spec: ParallelismSpec) -> Op:
+    if spec.tp == 1:
+        return op
+    if isinstance(op, MatmulOp):
+        return _shard_matmul(op, spec.tp)
+    if isinstance(op, AttentionOp):
+        return _shard_attention(op, spec.tp)
+    if isinstance(op, MemoryOp):
+        return _shard_memory(op, spec.tp, spec.act_mode)
+    return op
+
+
+def _row_parallel_per_layer(cfg: C.ModelConfig, kind: str) -> int:
+    """Forward row-parallel projections per layer of ``kind``: each ends in
+    a partial-sum hidden state the tp group must reduce (Megatron: one after
+    attention's wo, one after the MLP's w_out)."""
+    ffn = 0
+    if kind in (C.ATTN, C.LOCAL_ATTN, C.ENC_ATTN, C.CROSS_ATTN, C.RGLRU):
+        if cfg.moe is not None:
+            ffn = 1 + cfg.moe.num_shared_experts
+        elif cfg.d_ff > 0:
+            ffn = 1
+    if kind in (C.ATTN, C.LOCAL_ATTN, C.ENC_ATTN):
+        return 1 + ffn
+    if kind == C.CROSS_ATTN:
+        return 2 + ffn                    # self.wo + cross.wo
+    if kind == C.RGLRU:
+        return 1 + ffn                    # rglru.w_out
+    if kind == C.MLSTM:
+        return 1                          # mlstm.down
+    if kind == C.SLSTM:
+        return 1                          # slstm.ff w_out
+    return 0
+
+
+# Layer kinds whose blocks carry an FFN: under MoE these route tokens
+# through experts.
+_FFN_KINDS = (C.ATTN, C.LOCAL_ATTN, C.CROSS_ATTN, C.RGLRU, C.ENC_ATTN)
+
+
+def moe_routed_bytes(cfg: C.ModelConfig, batch: int, seq: int,
+                     dt: str) -> float:
+    """Full (unsharded) payload of ONE MoE layer's dispatch (== combine)
+    all-to-all: the routed ``(G, E·cap, d_model)`` activation, with the
+    capacity floor the expert bmms use."""
+    m = cfg.moe
+    T = batch * seq
+    G = batch
+    Sg = T // G
+    cap = max(int(m.capacity_factor * Sg * m.top_k / m.num_experts),
+              m.top_k, 4)
+    return float(G * m.num_experts * cap * cfg.d_model * dtype_bytes(dt))
+
+
+def _moe_all_to_all(cfg: C.ModelConfig, batch: int, seq: int, tp: int,
+                    dt: str, count: int = 1) -> List[Op]:
+    """Dispatch + combine token-routing all-to-alls for ``count`` MoE
+    layers (experts are sharded over the tp axis, as ``_shard_matmul``)."""
+    routed = moe_routed_bytes(cfg, batch, seq, dt)
+    return [
+        CollectiveOp("moe.dispatch.all_to_all", "all_to_all", routed, tp,
+                     count=count, dtype=dt),
+        CollectiveOp("moe.combine.all_to_all", "all_to_all", routed, tp,
+                     count=count, dtype=dt),
+    ]
+
+
+def tp_boundary_reductions(name: str, nbytes: float, spec: ParallelismSpec,
+                           dt: str, count: int = 1) -> List[Op]:
+    """The collective(s) one partial-sum boundary induces under ``spec``'s
+    act mode: one all-reduce in Megatron-TP, a reduce-scatter + all-gather
+    pair of the same bytes in sequence-parallel mode.  Both the flat
+    expansion and ``core/schedule.py``'s per-layer pipeline stages emit
+    through it."""
+    if count <= 0 or spec.tp <= 1:
+        return []
+    if spec.act_mode == "sp":
+        return [CollectiveOp(f"{name}.reduce_scatter", "reduce_scatter",
+                             nbytes, spec.tp, count=count, dtype=dt),
+                CollectiveOp(f"{name}.all_gather", "all_gather",
+                             nbytes, spec.tp, count=count, dtype=dt)]
+    return [CollectiveOp(f"{name}.all_reduce", "all_reduce", nbytes,
+                         spec.tp, count=count, dtype=dt)]
+
+
+def _induced_collectives(cfg: C.ModelConfig, batch: int, seq: int,
+                         spec: ParallelismSpec, dt: str) -> List[Op]:
+    """The CollectiveOps one rank issues during a forward pass under
+    ``spec``.  Data parallelism induces none (the gradient all-reduce is a
+    training-step concern: ``core/schedule.py``'s training graph)."""
+    out: List[Op] = []
+    esz = dtype_bytes(dt)
+    T = batch * seq
+    hid_bytes = float(T * cfg.d_model * esz)
+    tp, pp = spec.tp, spec.pp
+
+    def emit(name: str, nbytes: float, n_ops: int):
+        out.extend(tp_boundary_reductions(name, nbytes, spec, dt,
+                                          count=n_ops))
+
+    if tp > 1:
+        for kind, n in sorted(Counter(cfg.layer_kinds).items()):
+            emit(f"{kind}.tp", hid_bytes,
+                 n * _row_parallel_per_layer(cfg, kind))
+        if cfg.encoder is not None:
+            enc_bytes = float(batch * cfg.encoder.n_frames * cfg.d_model * esz)
+            emit("enc.tp", enc_bytes, 2 * cfg.encoder.n_layers)
+        # vocab-parallel embed: masked partial embeddings are summed
+        out.append(CollectiveOp("embed.tp.all_reduce", "all_reduce",
+                                hid_bytes, tp, dtype=dt))
+        # vocab-parallel logits gathered for decoding
+        Vp = pad_vocab(cfg.vocab_size)
+        out.append(CollectiveOp("unembed.tp.all_gather", "all_gather",
+                                float(T * Vp * esz), tp, dtype=dt))
+        # MoE: expert parallelism over the tp axis routes tokens through
+        # dispatch/combine all-to-alls
+        if cfg.moe is not None:
+            n_moe = sum(1 for k in cfg.layer_kinds if k in _FFN_KINDS)
+            if n_moe:
+                out += _moe_all_to_all(cfg, batch, seq, tp, dt, count=n_moe)
+    if pp > 1:
+        # single-microbatch pipeline: stage hand-offs are sequential p2p
+        # sends of the (T, d) activation
+        out.append(CollectiveOp("pp.activation_p2p", "p2p", hid_bytes, 2,
+                                count=pp - 1, dtype=dt))
+    return out
+
+
+def enumerate_parallel_ops(cfg: C.ModelConfig, batch: int, seq: int,
+                           spec: ParallelismSpec,
+                           dtype: Optional[str] = None) -> List[Op]:
+    """ONE RANK's op list for tokens (batch, seq) executed under ``spec``:
+
+    * dp shards the batch (per-rank batch = ⌈batch/dp⌉, no forward comm),
+    * tp shards each op by the ``_shard_*`` name rules and appends the
+      induced reductions/gathers,
+    * pp leaves the per-rank compute equal to the full stack: a
+      single-microbatch pipeline's latency is the sum of all stages plus
+      the (pp-1) activation hand-offs appended here.
+
+    ``spec.trivial`` returns ``enumerate_ops`` unchanged."""
+    if spec.trivial:
+        return enumerate_ops(cfg, batch, seq, dtype=dtype)
+    dt = dtype or "float32"
+    bsh = _ceil_div(batch, spec.dp)
+    ops = [_shard_op(op, spec) for op in enumerate_ops(cfg, bsh, seq,
+                                                       dtype=dtype)]
+    return ops + _induced_collectives(cfg, bsh, seq, spec, dt)

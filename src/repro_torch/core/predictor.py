@@ -9,7 +9,9 @@ arithmetic is the JAX package's, so the same store and features give
 bit-identical answers.  A decode step is priced as
 ``predict_ops(enumerate_decode_ops(...))``; a ``CollectiveOp`` by the α–β
 model (``core/collectives.py``) under the device's datasheet interconnect.
-Parallel and training-step prediction come with the schedule slice.
+Parallel and training-step prediction price the list schedule of
+``core/schedule.py`` (imported where it is used: it imports
+``PredictionRow`` from here).
 """
 from __future__ import annotations
 
@@ -123,6 +125,43 @@ class PM2Lat:
                       dtype: Optional[str] = None):
         ops = og.enumerate_ops(cfg, batch, seq, dtype=dtype)
         return self.predict_ops(ops)
+
+    def predict_parallel(self, cfg: C.ModelConfig, batch: int, seq: int,
+                         spec: og.ParallelismSpec,
+                         dtype: Optional[str] = None):
+        """Schedule-aware end-to-end prediction under a ``ParallelismSpec``:
+        the makespan of the two-stream list schedule over the sharded
+        compute ops + induced collectives, and its rows.  With
+        ``microbatches == 1`` the schedule is a serialized chain (a trivial
+        spec runs the ``predict_model`` op list)."""
+        sched = self.schedule_parallel(cfg, batch, seq, spec, dtype=dtype)
+        return sched.makespan, sched.rows
+
+    def schedule_parallel(self, cfg: C.ModelConfig, batch: int, seq: int,
+                          spec: og.ParallelismSpec,
+                          dtype: Optional[str] = None):
+        """The full ``Schedule`` (timeline + busy/exposed splits) behind
+        ``predict_parallel``."""
+        from repro_torch.core import schedule as S
+        return S.schedule_parallel(self, cfg, batch, seq, spec, dtype=dtype)
+
+    def predict_step(self, cfg: C.ModelConfig, batch: int, seq: int,
+                     spec: Optional[og.ParallelismSpec] = None, train=None,
+                     dtype: Optional[str] = None):
+        """One training step (fwd + bwd + gradient comm + optimizer update)
+        under a ``ParallelismSpec`` + ``schedule.TrainingStepSpec``, priced
+        as the schedule makespan."""
+        sched = self.schedule_step(cfg, batch, seq, spec=spec, train=train,
+                                   dtype=dtype)
+        return sched.makespan, sched.rows
+
+    def schedule_step(self, cfg: C.ModelConfig, batch: int, seq: int,
+                      spec: Optional[og.ParallelismSpec] = None, train=None,
+                      dtype: Optional[str] = None):
+        """The full training-step ``Schedule`` behind ``predict_step``."""
+        from repro_torch.core import schedule as S
+        return S.schedule_step(self, cfg, batch, seq, spec=spec, train=train,
+                               dtype=dtype)
 
     def predict_blocks(self, cfg: C.ModelConfig, batch: int, seq: int,
                        dtype: Optional[str] = None) -> List[float]:
