@@ -19,8 +19,16 @@ engine's speed, its prediction cache, the NAS precompute against
 parallel enumeration, list-schedule simulator, strategy sweep, serving
 simulator and partition planner held against the scalar predictor and
 against the card (microbatched forwards, planned pipeline stages timed
-alone, the serving engine at capacity 1).  Every phase prints one JSON
-line; the full record (and the calibrated store) goes to ``chiprun_out/``.
+alone, the serving engine at capacity 1).  Then the service path: the
+latency service (``serving/latency_service.py``) held against the engine
+and its own persisted cache, comm calibration on the card (a loopback
+sweep, the bundled traces, the L2 sweep and its correction, the traces
+replayed against their budgets), what the correction does to the forward
+and decode predictions, and the bf16 serving engine under the service's
+decode admission oracle.  Every phase prints one JSON line; the full
+record (and the calibrated store) goes to ``chiprun_out/``.  The
+comm-calibration artifact is this run's own
+(``chiprun_out/comm_calibration.json``, deleted at the start).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failing phase, a
 missing card, or a checkout without ``src/repro_torch`` (the import fails)
@@ -47,10 +55,12 @@ import torch  # noqa: E402
 
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
+from repro_torch.core import comm_calibrate as comm  # noqa: E402
 from repro_torch.core import opgraph as og  # noqa: E402
 from repro_torch.core import partition  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core import schedule as sched  # noqa: E402
+from repro_torch.core import validate  # noqa: E402
 from repro_torch.core.batch_predict import (BatchPredictor,  # noqa: E402
                                             PredictionCache, config_key)
 from repro_torch.core.devices.profiles import H100_SXM  # noqa: E402
@@ -65,7 +75,9 @@ from repro_torch.kernels import matmul as mk  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
-from repro_torch.serving.engine import DecodeGraph, Request  # noqa: E402
+from repro_torch.serving.engine import (DecodeGraph, Request,  # noqa: E402
+                                        ServingEngine)
+from repro_torch.serving.latency_service import LatencyService  # noqa: E402
 
 MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
@@ -137,6 +149,17 @@ SERVE1_ARGS = ["--arch", MODEL, "--requests", "4", "--prompt-len", "512",
                "--compute-dtype", "bfloat16", "--seed", "0"]
 SCHED_CAPACITIES = (1, 2, 4, 8)
 SCHED_WORLDS = (8, 64)
+# The service phase: the comm-calibration artifact this run writes (and
+# deletes first: no artifact moves the phases before ``service``); the
+# trivial spec against ``latency_query`` at 1e-12, as SCHED_TRIVIAL_RTOL;
+# the admission run: SERVICE_PROMPTS prompts of SEQ tokens, SERVICE_NEW new
+# each, capacity SERVICE_CAPACITY, bf16, the SLO the oracle's own value at
+# (SERVICE_SLO_BATCH, ctx); the planners on SERVICE_DEVICES devices.
+COMM_CAL = OUT / "comm_calibration.json"
+SERVICE_PROMPTS, SERVICE_NEW, SERVICE_CAPACITY = 12, 32, 8
+SERVICE_SLO_BATCH = 4
+SERVICE_DEVICES = 8
+SERVICE_MM_SHAPE = (BATCH * SEQ, 4864)      # the MLP's w_in at (8, 512)
 
 
 def emit(phase: str, **fields):
@@ -881,16 +904,21 @@ def phase_serve(store):
     return rec, launches
 
 
-def check_served(engine, done):
+def check_served(engine, done, waves=None):
     """What the engine served (its CUDA graphs, reloaded for the second
     wave, and its argmax on the card) against an eager ``prefill`` and
     ``decode_step`` of each wave's prompts, greedy, on the card: the rids
-    whose tokens differ, and each one's first differing step."""
+    whose tokens differ, and each one's first differing step.  ``waves``
+    gives the wave sizes the engine seated (default: ``max_batch`` each)."""
     model, vocab = engine.model, engine.model.cfg.vocab_size
+    if waves is None:
+        waves = [engine.max_batch] * -(-len(done) // engine.max_batch)
     mismatched = {}
+    start = 0
     with torch.no_grad():
-        for i in range(0, len(done), engine.max_batch):
-            wave = done[i:i + engine.max_batch]
+        for size in waves:
+            wave = done[start:start + size]
+            start += size
             if len({len(r.prompt) for r in wave}) != 1:
                 raise AssertionError("check_served needs one prompt length "
                                      "a wave (no left padding)")
@@ -1616,6 +1644,316 @@ def schedule_best(cfg0, engines, store):
     return out
 
 
+def phase_service(store, model_rec, decode_recs):
+    """The latency service and the comm calibration on the card's store
+    (qwen2-0.5b).  Before any artifact exists: the service against the
+    engine, its cache and its persisted file (``service_agreement``).
+    Then (a) ``calibrate_comm`` on the card (``service_calibrate``); the
+    calibrated keys (``service_tagged``); (c) the L2 correction's effect on
+    the forward and decode predictions beside phase ``model``'s and phase
+    ``decode``'s measurements (reports only); (d) the bf16 serve path under
+    the calibrated service's decode admission oracle
+    (``service_admission``); (e) the planners, predicted only.  Fails if a
+    check of (a), (b) or (d) fails."""
+    t0 = time.perf_counter()
+    dev = store.meta["device"]
+    cfg0 = cfg_registry.get(MODEL)
+    cache_path = OUT / "service_cache.json"
+    if cache_path.exists():
+        cache_path.unlink()
+    pm_off = PM2Lat(store, dev)
+    agree = service_agreement(store, dev, cfg0, cache_path)
+    calib = service_calibrate(store, dev)
+    tagged = service_tagged(store, dev, cfg0, cache_path)
+    svc = LatencyService(store, dev)
+    l2 = service_l2_effect(pm_off, PM2Lat(store, dev), cfg0, model_rec,
+                           decode_recs)
+    admission = service_admission(svc, cfg0)
+    plans = service_plans(svc, cfg0)
+    bad = [k for part in (agree, calib, tagged, admission)
+           for k, ok in part["checks"].items() if not ok]
+    if bad:
+        raise AssertionError(f"service: failed {bad}")
+    seconds = time.perf_counter() - t0
+    emit("service_seconds", total=seconds)
+    return {"agreement": agree, "calibration": calib, "tagged": tagged,
+            "l2_effect": l2, "admission": admission, "plans": plans,
+            "seconds": seconds}
+
+
+def service_agreement(store, dev, cfg0, cache_path):
+    """(b) on the datasheet path: ``latency_query`` against
+    ``BatchPredictor.predict_model`` and against phase ``grid``'s cached
+    engine prediction (bit for bit, under the same key), a second query
+    cached, every ``latency_grid`` point a hit, the trivial spec within
+    SCHED_TRIVIAL_RTOL of the query, and ``save_cache`` read back by a new
+    service with equal values, dict-valued entries included."""
+    svc = LatencyService(store, dev, cache_path=str(cache_path))
+    grid_cache = PredictionCache(path=str(OUT / "grid_prediction_cache.json"))
+    mix = sched.TrafficMix((SEQ,), (SERVICE_NEW,), n_requests=BATCH)
+    checks, rows = {}, []
+    for d in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=d)
+        key = PredictionCache.make_key(config_key(cfg), dev, d, BATCH, SEQ)
+        q = svc.latency_query(cfg, BATCH, SEQ, dtype=d)
+        again = svc.latency_query(cfg, BATCH, SEQ, dtype=d)
+        engine_s = svc.predictor.predict_model(cfg, BATCH, SEQ, dtype=d)[0]
+        checks[f"{d}_query_is_engine"] = (q.seconds == engine_s
+                                          and not q.cached)
+        checks[f"{d}_grid_phase_bitwise"] = q.seconds == grid_cache.get(key)
+        checks[f"{d}_second_query_cached"] = (again.cached
+                                              and again.seconds == q.seconds)
+        grid = svc.latency_grid(cfg, GRID_BATCHES, GRID_SEQS, dtype=d)
+        hits = [svc.latency_query(cfg, b, s, dtype=d) for b in GRID_BATCHES
+                for s in GRID_SEQS]
+        checks[f"{d}_grid_points_hit"] = all(
+            r.cached and r.seconds == g for r, g in zip(hits, grid.ravel()))
+        par = svc.latency_parallel(cfg, BATCH, SEQ, dtype=d)
+        checks[f"{d}_trivial_spec"] = (
+            rel_diff(par.seconds, q.seconds) <= SCHED_TRIVIAL_RTOL)
+        tp2 = svc.latency_parallel(cfg, BATCH, SEQ, tp=2, dtype=d)
+        serve = svc.latency_serve(cfg, mix, capacity=BATCH, dtype=d)
+        rows.append({"dtype": d, "query_ms": q.seconds * 1e3,
+                     "trivial_spec_rel_diff": rel_diff(par.seconds,
+                                                       q.seconds),
+                     "tp2_ms": tp2.seconds * 1e3,
+                     "tp2_comm_share": tp2.comm_share,
+                     "serve_tpot_p50_ms": serve.tpot_p50 * 1e3,
+                     "serve_tokens_per_s": serve.tokens_per_sec})
+    svc.save_cache()
+    back = LatencyService(store, dev, cache_path=str(cache_path))
+    checks["reloaded_entries_equal"] = (list(back.cache._od.items())
+                                        == list(svc.cache._od.items()))
+    for d in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=d)
+        pairs = [(svc.latency_query(cfg, BATCH, SEQ, dtype=d),
+                  back.latency_query(cfg, BATCH, SEQ, dtype=d)),
+                 (svc.latency_parallel(cfg, BATCH, SEQ, tp=2, dtype=d),
+                  back.latency_parallel(cfg, BATCH, SEQ, tp=2, dtype=d)),
+                 (svc.latency_serve(cfg, mix, capacity=BATCH, dtype=d),
+                  back.latency_serve(cfg, mix, capacity=BATCH, dtype=d))]
+        checks[f"{d}_reloaded_hits_equal"] = all(
+            b.cached and a.to_json() == b.to_json() for a, b in pairs)
+    rec = {"checks": checks, "rows": rows, "stats": back.stats,
+           "cache_entries": len(back.cache),
+           "dict_entries": sum(isinstance(v, dict)
+                               for v in back.cache._od.values())}
+    emit("service_agreement", **rec)
+    return rec
+
+
+def service_calibrate(store, dev):
+    """(a) ``calibrate_comm`` on the card into COMM_CAL: the loopback
+    sweep's fit, the two trace fits, the L2 sweep and its fit.  Fails
+    unless the fit's L2 size is the card's, every bundled trace passes its
+    budget under the fitted constants, and a fit with a third of the link
+    bandwidth fails the collective budget on both collective traces."""
+    t0 = time.perf_counter()
+    c = comm.calibrate_comm(str(COMM_CAL), device="cuda", verbose=False)
+    seconds = time.perf_counter() - t0
+    fits = {name: {"link_bw_gb_s": f.link_bw / 1e9,
+                   "link_latency_us": f.link_latency * 1e6,
+                   "eff_gamma": f.eff_gamma, "rel_err": f.rel_err,
+                   "n_points": f.n_points, "topology": f.topology}
+            for name, f in c.fits.items()}
+    cache = c.cache[dev]
+    samples = [{"bytes": s["bytes"], "ms": s["duration"] * 1e3,
+                "gb_s": s["bytes"] / s["duration"] / 1e9}
+               for s in c.meta["cache_samples"]]
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    reports = validate.run_validation(calibration=c)
+    perturbed = []
+    for path in validate.list_traces():
+        trace = validate.load_trace(path)
+        if trace["kind"] != "collective":
+            continue
+        fit = c.fits[trace["device"]]
+        bad = validate.validate_collective_trace(trace, ic=dataclasses.replace(
+            fit.interconnect(), link_bw=fit.link_bw / 3.0))
+        perturbed.append({"name": bad.name, "mean_rel_err": bad.mean_rel_err,
+                          "budget": bad.budget, "passed": bad.passed})
+    checks = {"l2_bytes_is_the_cards": cache["l2_bytes"] == l2,
+              "four_traces": len(reports) == 4,
+              "traces_pass": all(r.passed for r in reports),
+              "perturbed_fail": len(perturbed) == 2
+              and not any(p["passed"] for p in perturbed),
+              "device_fit": dev in c.fits}
+    rec = {"checks": checks, "seconds": seconds, "fits": fits,
+           "cache_samples": samples, "cache_fit": {
+               **cache, "rel_err": c.meta["cache_rel_err"],
+               "card_l2_bytes": l2},
+           "tag": comm.calibration_tag(dev),
+           "validation": [r.to_json() for r in reports],
+           "perturbed": perturbed, "artifact": str(COMM_CAL.relative_to(ROOT))}
+    emit("service_calibrate", **rec)
+    return rec
+
+
+def service_tagged(store, dev, cfg0, cache_path):
+    """(b), once the artifact is in effect: a service on the saved cache
+    keys the card as ``<device>+cc<tag>`` and misses the datasheet keys,
+    which its cache still holds."""
+    svc = LatencyService(store, dev, cache_path=str(cache_path))
+    tag = comm.calibration_tag(dev)
+    cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16")
+    plain = PredictionCache.make_key(config_key(cfg), dev, "bfloat16",
+                                     BATCH, SEQ)
+    q = svc.latency_query(cfg, BATCH, SEQ, dtype="bfloat16")
+    checks = {"cache_device_tagged":
+              svc.predictor.cache_device == f"{dev}+cc{tag}",
+              "datasheet_key_held": plain in svc.cache,
+              "datasheet_key_missed": not q.cached}
+    rec = {"checks": checks, "cache_device": svc.predictor.cache_device,
+           "calibrated_query_ms": q.seconds * 1e3,
+           "datasheet_query_ms": svc.cache.get(plain) * 1e3}
+    emit("service_tagged", **rec)
+    return rec
+
+
+def service_l2_effect(pm_off, pm_on, cfg0, model_rec, decode_recs):
+    """(c) the qwen2-0.5b predictions without (``pm_off``, built before the
+    artifact) and with (``pm_on``) the L2 correction, beside phase
+    ``model``'s (8, 512) forwards and phase ``decode``'s CUDA-graph steps,
+    and each memory-priced decode row's factor at its working set (its
+    bytes feature).  Reports only."""
+    cc = pm_on.memory_model.cache
+    err = lambda p, m: 100 * abs(p - m) / m
+    forward, decode = [], []
+    for d in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=d)
+        off = pm_off.predict_model(cfg, BATCH, SEQ, dtype=d)[0] * 1e3
+        on = pm_on.predict_model(cfg, BATCH, SEQ, dtype=d)[0] * 1e3
+        meas = model_rec[d]["measured_ms"]
+        forward.append({"dtype": d, "batch": BATCH, "seq": SEQ,
+                        "measured_ms": meas, "without_ms": off,
+                        "with_ms": on, "err_without_pct": err(off, meas),
+                        "err_with_pct": err(on, meas)})
+    for rec in decode_recs:
+        d, ctx = rec["dtype"], rec["ctx"]
+        ops = og.enumerate_decode_ops(dataclasses.replace(
+            cfg0, compute_dtype=d), BATCH, ctx, dtype=d)
+        off, off_rows = pm_off.predict_ops(ops)
+        on, on_rows = pm_on.predict_ops(ops)
+        rows = []
+        for op, a, b in zip(ops, off_rows, on_rows):
+            if op.kind == "memory":
+                w = op.features()["bytes"]
+            elif op.kind == "attention":
+                w = og.decode_attention_features(op)["bytes"]
+            else:
+                continue
+            rows.append({"op": op.name, "bytes": w, "factor": cc.factor(w),
+                         "without_ms": a.seconds * 1e3,
+                         "with_ms": b.seconds * 1e3})
+        meas = rec["graph_ms"]
+        decode.append({"dtype": d, "batch": BATCH, "ctx": ctx,
+                       "measured_graph_ms": meas, "without_ms": off * 1e3,
+                       "with_ms": on * 1e3,
+                       "err_without_pct": err(off * 1e3, meas),
+                       "err_with_pct": err(on * 1e3, meas), "rows": rows})
+    out = {"correction": cc.to_json(), "forward": forward, "decode": decode}
+    emit("service_l2_effect", **out)
+    return out
+
+
+def service_admission(svc, cfg0):
+    """(d) the bf16 serve path at full width under the calibrated service's
+    decode oracle, SERVICE_PROMPTS prompts of SEQ tokens, SERVICE_NEW new
+    each, capacity SERVICE_CAPACITY, and an SLO read off the oracle's own
+    grid at (SERVICE_SLO_BATCH, ctx).  Fails unless every wave is the
+    largest k with oracle(k, ctx) <= SLO (1 if none), computed here from
+    the grid, every served token equals the eager steps' and the flash
+    kernel launched once a layer a prefill.  Reports each wave's measured
+    TPOT p50 beside the SLO and ``latency_serve``'s TPOT at that
+    capacity."""
+    cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16")
+    ctx = SEQ + SERVICE_NEW
+    oracle = svc.decode_oracle(cfg, "bfloat16", capacity=SERVICE_CAPACITY,
+                               max_ctx=ctx)
+    grid = [oracle(k, ctx) for k in range(1, SERVICE_CAPACITY + 1)]
+    slo = grid[SERVICE_SLO_BATCH - 1]
+    want, left = [], SERVICE_PROMPTS
+    while left:
+        k = max([k for k in range(1, min(SERVICE_CAPACITY, left) + 1)
+                 if grid[k - 1] <= slo] or [1])
+        want.append(k)
+        left -= k
+    model = model_registry.build(cfg, device="cuda", seed=0)
+    model.cast_weights_(torch.bfloat16)
+    engine = ServingEngine(model, max_batch=SERVICE_CAPACITY,
+                           max_len=ctx + 8, admission_oracle=oracle,
+                           slo_tpot=slo)
+    sizes, admit = [], engine._admit
+
+    def record_wave(queue):
+        wave = admit(queue)
+        sizes.append(len(wave))
+        return wave
+    engine._admit = record_wave
+    rng = np.random.default_rng(7)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=SEQ)
+                    .astype(np.int32), max_new_tokens=SERVICE_NEW)
+            for i in range(SERVICE_PROMPTS)]
+    before = fk.flash_attention_kernel.launches
+    done = engine.run(reqs)
+    flash = fk.flash_attention_kernel.launches - before
+    served = check_served(engine, done, sizes)
+    waves, start = [], 0
+    for k in sizes:
+        w = done[start:start + k]
+        start += k
+        tpot = [(r.t_done - r.t_first_token) / (len(r.out_tokens) - 1)
+                for r in w]
+        mix = sched.TrafficMix((SEQ,), (SERVICE_NEW,), n_requests=k)
+        pred = svc.latency_serve(cfg, mix, capacity=k, dtype="bfloat16")
+        waves.append({"size": k, "measured_tpot_p50_ms":
+                      float(np.median(tpot)) * 1e3,
+                      "slo_ms": slo * 1e3,
+                      "oracle_step_ms": grid[k - 1] * 1e3,
+                      "latency_serve_tpot_p50_ms": pred.tpot_p50 * 1e3})
+    checks = {"waves_as_the_grid_says": sizes == want,
+              "served_tokens_equal_eager": not served["mismatched"],
+              "tokens_each": all(len(r.out_tokens) == SERVICE_NEW
+                                 for r in done),
+              "flash_once_a_layer_a_prefill":
+                  flash == cfg.n_layers * len(sizes)}
+    rec = {"checks": checks, "oracle_grid_ms": [g * 1e3 for g in grid],
+           "oracle_cache_info": oracle.cache_info(), "slo_ms": slo * 1e3,
+           "slo_batch": SERVICE_SLO_BATCH, "ctx": ctx, "wave_sizes": sizes,
+           "expected_wave_sizes": want, "waves": waves,
+           "flash_launches": flash, "served_vs_eager": served,
+           "wall_s": engine.wall_s}
+    emit("service_admission", **rec)
+    del engine, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def service_plans(svc, cfg0):
+    """(e) predictions one card cannot check: ``plan_training`` and
+    ``plan_serving`` for SERVICE_DEVICES devices on the card's store and
+    re-anchored to ``h100_sxm``, bf16, and the oracle's explanation of one
+    matmul shape."""
+    cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16")
+    mix = sched.TrafficMix((SEQ,), (SERVICE_NEW,), n_requests=16)
+    out = {"training": [], "serving": []}
+    for device in (None, H100_SXM.name):
+        tp = svc.plan_training(cfg, BATCH, SEQ, devices=SERVICE_DEVICES,
+                               dtype="bfloat16", device=device)
+        sp = svc.plan_serving(cfg, mix, devices=SERVICE_DEVICES,
+                              dtype="bfloat16", device=device)
+        out["training"].append({k: v for k, v in tp.to_json().items()
+                                if k != "alternatives"})
+        out["serving"].append({k: v for k, v in sp.to_json().items()
+                               if k != "alternatives"})
+    out["explain"] = {
+        "shape": SERVICE_MM_SHAPE,
+        "candidates": svc.explain_kernels("matmul", SERVICE_MM_SHAPE,
+                                          dtype="bfloat16")}
+    emit("service_plans", **out)
+    return out
+
+
 def kernel_lines(launches, mm_pick):
     """Each hand kernel in bf16 at the main path's shapes: its time (and
     each config's), its own device time, its plain version's time, one
@@ -1831,6 +2169,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is true f32
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(exist_ok=True)
+    # this run's comm-calibration artifact only, written in phase service
+    os.environ[comm.CALIBRATION_ENV] = str(COMM_CAL)
+    COMM_CAL.unlink(missing_ok=True)
     record = {}
 
     smi = phase_device()
@@ -1871,8 +2212,11 @@ def main() -> int:
     reset_launches()
     schedule = phase_schedule(store, serving)
     by_path["schedule"] = hand_launches()
+    reset_launches()
+    service = phase_service(store, model, decode)
+    by_path["service"] = hand_launches()
     emit("path_launches", **by_path)
-    for path in ("decode", "serve", "grid", "schedule"):
+    for path in ("decode", "serve", "grid", "schedule", "service"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -1889,7 +2233,7 @@ def main() -> int:
     emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
-                  schedule=schedule, kernels=kernels,
+                  schedule=schedule, service=service, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

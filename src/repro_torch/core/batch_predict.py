@@ -28,16 +28,14 @@ proxy features, counted by ``core/cost.py`` on meta tensors per unique
 later sweeps are pure numpy (``_feat_cache``).
 
 ``PredictionCache`` is an LRU + JSON-persistent prediction cache keyed on
-``(model, device, dtype, batch, seq)``; ``predict_model_cached`` sits on
-top of it.
+``(model, device, dtype, batch, seq[, spec])``; ``predict_model_cached``
+and ``serving/latency_service.py`` sit on top of it.
 
 Parallel, training-step, strategy-sweep and serving-table prediction go
 through ``core/schedule.py``, priced by this engine.  Every vectorized path
 reproduces the scalar predictor's floating-point operation ORDER, so
 results match ``PM2Lat.predict_op`` to ~ulp, and the JAX package's engine
-bit for bit on the same store and feature rows.  The JAX engine's
-spec-keyed, dict-valued cache entries and its multi-dtype model grid serve
-only its latency service, which is not ported yet.
+bit for bit on the same store and feature rows.
 """
 from __future__ import annotations
 
@@ -46,12 +44,13 @@ import json
 import os
 import zlib
 from collections import Counter, OrderedDict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.configs import base as C
 from repro_torch.core import collectives as CC
+from repro_torch.core.comm_calibrate import calibration_tag
 from repro_torch.core import devices as D
 from repro_torch.core import opgraph as og
 from repro_torch.core import oracle as O
@@ -497,15 +496,21 @@ class BatchPredictor:
     @property
     def interconnect(self):
         """This device's α–β interconnect (``core/collectives.py``), shared
-        with the scalar path so both price collectives identically."""
+        with the scalar path so both price collectives identically: the
+        measured fit when a comm-calibration artifact carries one
+        (``core/comm_calibrate.py``), the datasheet profile otherwise."""
         return self.scalar.interconnect
 
     @property
     def cache_device(self) -> str:
         """The device field of every cache key this predictor writes: the
-        bare device name (comm calibration, which would tag it, is not
-        ported)."""
-        return self.device
+        bare device name on the datasheet path, ``<device>+cc<fingerprint>``
+        once a comm-calibration artifact changes this device's predictions,
+        so calibrated and datasheet entries never collide in the shared
+        ``PredictionCache`` and recalibration (a new fingerprint)
+        self-invalidates without a schema bump."""
+        tag = calibration_tag(self.device)
+        return self.device if tag is None else f"{self.device}+cc{tag}"
 
     def predict_collective_batch(self, ops: Sequence,
                                  return_algos: bool = False) -> np.ndarray:
@@ -725,21 +730,27 @@ class BatchPredictor:
 
     def predict_model_grid(self, cfg: C.ModelConfig,
                            batches: Sequence[int], seqs: Sequence[int],
-                           dtype: Optional[str] = None,
-                           device: Optional[str] = None) -> np.ndarray:
+                           dtypes: Union[None, str, Sequence[str]] = None,
+                           device: Optional[str] = None):
         """Whole-model latency over the (batch, seq) grid, the op graph
-        enumerated symbolically once.  Returns a
-        ``(len(batches), len(seqs))`` float array of total seconds."""
+        enumerated symbolically once per dtype.  Returns a
+        ``(len(batches), len(seqs))`` float array of total seconds, or a
+        ``{dtype: array}`` dict when ``dtypes`` is a sequence."""
         if device is not None and device != self.device:
             return self.for_device(device).predict_model_grid(
-                cfg, batches, seqs, dtype)
+                cfg, batches, seqs, dtypes)
         batches = np.asarray(list(batches), np.int64)
         seqs = np.asarray(list(seqs), np.int64)
         bg, sg = np.meshgrid(batches, seqs, indexing="ij")
         b, s = bg.ravel(), sg.ravel()
-        gops = enumerate_grid_ops(cfg, b, s, dtype=dtype)
-        total = self.predict_grid_ops(gops, b.size)
-        return total.reshape(len(batches), len(seqs))
+        single = dtypes is None or isinstance(dtypes, str)
+        dts = [dtypes] if single else list(dtypes)
+        out = {}
+        for dt in dts:
+            gops = enumerate_grid_ops(cfg, b, s, dtype=dt)
+            total = self.predict_grid_ops(gops, b.size)
+            out[dt or "float32"] = total.reshape(len(batches), len(seqs))
+        return next(iter(out.values())) if single else out
 
     def predict_decode_grid(self, cfg: C.ModelConfig,
                             batches: Sequence[int], ctxs: Sequence[int],
@@ -849,9 +860,15 @@ def config_key(cfg: C.ModelConfig) -> str:
 
 
 class PredictionCache:
-    """LRU cache of model-level predictions (seconds) keyed on
-    ``(model, device, dtype, batch, seq)``, JSON-persistable so NAS sweeps
-    and latency queries survive process restarts.
+    """LRU cache of model-level predictions keyed on
+    ``(model, device, dtype, batch, seq[, spec])``, JSON-persistable so NAS
+    sweeps and the serving latency endpoint survive process restarts.
+
+    Values are either a bare float (``latency_query``-style single-device
+    seconds) or a flat ``{str: float}`` dict (``latency_parallel`` /
+    ``latency_train`` / ``latency_serve`` records).  The optional ``spec``
+    key component is the ``ParallelismSpec.tag()`` (plus the training or
+    serving tag); single-device keys carry none.
 
     ``SCHEMA`` stamps the persisted file with the prediction SEMANTICS
     version, so caches persisted under other semantics self-invalidate on
@@ -867,16 +884,17 @@ class PredictionCache:
         self.path = path
         self.hits = 0
         self.misses = 0
-        self._od: "OrderedDict[str, float]" = OrderedDict()
+        self._od: "OrderedDict[str, Union[float, dict]]" = OrderedDict()
         if path and os.path.exists(path):
             self.load(path)
 
     @staticmethod
     def make_key(model: str, device: str, dtype: Optional[str],
-                 batch: int, seq: int) -> str:
-        return f"{model}|{device}|{dtype or 'float32'}|{int(batch)}|{int(seq)}"
+                 batch: int, seq: int, spec: Optional[str] = None) -> str:
+        key = f"{model}|{device}|{dtype or 'float32'}|{int(batch)}|{int(seq)}"
+        return f"{key}|{spec}" if spec else key
 
-    def get(self, key: str) -> Optional[float]:
+    def get(self, key: str) -> Union[None, float, dict]:
         if key in self._od:
             self._od.move_to_end(key)
             self.hits += 1
@@ -884,8 +902,11 @@ class PredictionCache:
         self.misses += 1
         return None
 
-    def put(self, key: str, seconds: float):
-        self._od[key] = float(seconds)
+    def put(self, key: str, seconds: Union[float, dict]):
+        if isinstance(seconds, dict):
+            self._od[key] = {k: float(v) for k, v in seconds.items()}
+        else:
+            self._od[key] = float(seconds)
         self._od.move_to_end(key)
         while len(self._od) > self.maxsize:
             self._od.popitem(last=False)
@@ -919,9 +940,8 @@ class PredictionCache:
         """A corrupt/truncated file is treated as an empty cache (predictions
         are recomputable), and so is a file persisted under a different
         ``SCHEMA`` — entries computed with old predictor semantics must not
-        be served as current; entries that are not a number (the JAX
-        engine's dict-valued schedule results) are skipped; explicit loads
-        of well-formed files still raise on missing paths via open()."""
+        be served as current; explicit loads of well-formed files still
+        raise on missing paths via open()."""
         path = path or self.path
         try:
             with open(path) as f:
@@ -930,9 +950,18 @@ class PredictionCache:
             return
         if not isinstance(d, dict) or d.get("schema") != self.SCHEMA:
             return
-        for e in d.get("entries", []):
+        entries = d.get("entries", [])
+
+        def _ok(v):
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                return True
+            return (isinstance(v, dict)
+                    and all(isinstance(k, str)
+                            and isinstance(x, (int, float))
+                            and not isinstance(x, bool)
+                            for k, x in v.items()))
+
+        for e in entries:
             if (isinstance(e, (list, tuple)) and len(e) == 2
-                    and isinstance(e[0], str)
-                    and isinstance(e[1], (int, float))
-                    and not isinstance(e[1], bool)):
+                    and isinstance(e[0], str) and _ok(e[1])):
                 self.put(e[0], e[1])

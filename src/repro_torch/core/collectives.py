@@ -25,8 +25,9 @@ Cost formulas (n = FULL tensor bytes, p = world size, B = bus bandwidth):
     tree  all-to-all       ⌈log2 p⌉·(α + (n/2)/B)          (Bruck)
     p2p                    α + n/B
 
-The measured α–β fit (comm calibration) is not ported yet: every device
-prices its collectives with its datasheet interconnect.
+The measured α–β fit lives in ``core/comm_calibrate.py``: predictors ask
+``calibrated_interconnect``, which falls back to ``interconnect_for``'s
+datasheet interconnect without an artifact.
 """
 from __future__ import annotations
 

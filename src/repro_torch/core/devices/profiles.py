@@ -16,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-from repro_torch.core.collectives import Interconnect, interconnect_for
+from repro_torch.core.collectives import Interconnect
+from repro_torch.core.comm_calibrate import calibrated_interconnect
 from repro_torch.core.device import peak_lookup
 
 
@@ -56,10 +57,12 @@ class DeviceProfile:
         return self.hbm_bytes * (1.0 - reserve)
 
     def calibrated_interconnect(self) -> Interconnect:
-        """The interconnect predictions use for this device.  Comm
-        calibration is not ported, so this is the datasheet path: the
-        registered ``interconnect``, else ``DEFAULT_INTERCONNECT``."""
-        return interconnect_for(self.name)
+        """The interconnect predictions use for this device: the measured
+        fit from the comm-calibration artifact when one exists
+        (``core/comm_calibrate.py``), else the datasheet ``interconnect``
+        field, else ``DEFAULT_INTERCONNECT``.  The datasheet numbers above
+        stay what they are — the spec sheet; calibration overlays them."""
+        return calibrated_interconnect(self.name)
 
 
 GiB = 1024 ** 3

@@ -268,3 +268,66 @@ def collect_utility_samples(workloads=None, device="cuda") -> List[Dict]:
         feats = op_features(fn, *args)
         samples.append({"name": name, "features": feats, "duration": dur})
     return samples
+
+
+# ----- measured L2 / cache-hierarchy correction (PPT-GPU-style) -----
+
+def collect_cache_samples(sizes=None, *, min_reps: int = 5,
+                          device="cuda") -> List[Dict]:
+    """Measured streaming-copy durations across working-set sizes that
+    straddle the last-level cache: the raw material for
+    ``fit_cache_correction``.  Each sample times ``dst.copy_(src)`` on
+    ``uint8`` tensors of ``size`` bytes on ``device`` with
+    ``profiler.measure``, the timer the memory model's own samples were
+    taken with, so the fit's intercept means the same on both sides.  Each
+    sample is ``{"bytes": accessed_bytes, "duration": seconds}``."""
+    dev = resolve(device)
+    if sizes is None:
+        sizes = tuple(1 << s for s in range(16, 29, 2))   # 64 KiB .. 256 MiB
+    samples = []
+    for size in sizes:
+        src = torch.ones(int(size), dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        dur = profiler.measure(dst.copy_, src, min_reps=min_reps, device=dev)
+        # bytes accessed = read + write of the working set
+        samples.append({"bytes": 2.0 * size, "duration": dur})
+        del src, dst
+    return samples
+
+
+def fit_cache_correction(samples: List[Dict], coef: np.ndarray,
+                         l2_bytes: float) -> "tuple[CacheCorrection, float]":
+    """Fit (hit_rate, speedup) so ``coef``'s bytes term, scaled by
+    ``CacheCorrection.factor``, explains the measured size sweep.  Grid
+    search with one refinement pass — the surface is smooth and 2-D, no
+    gradient machinery needed.  Returns ``(correction, rel_err)``; the
+    correction degrades to the identity (hit_rate 0) when the data shows
+    no cache effect."""
+    w = np.array([s["bytes"] for s in samples], np.float64)
+    y = np.array([s["duration"] for s in samples], np.float64)
+    keep = (w > 0) & (y > 0)
+    w, y = w[keep], y[keep]
+    if len(w) < 3:
+        raise ValueError(f"fit_cache_correction: need >= 3 positive samples, "
+                         f"got {len(w)}")
+    c_bytes, c_const = float(coef[0]), float(coef[3])
+
+    def err(h, s):
+        cc = CacheCorrection(l2_bytes=l2_bytes, hit_rate=h, speedup=s)
+        pred = c_bytes * w * cc.factor(w) + c_const
+        return float(np.mean(np.abs(pred - y) / y))
+
+    hs = np.linspace(0.0, 1.0, 21)
+    ss = np.linspace(1.0, 8.0, 29)
+    _, h0, s0 = min(((err(h, s), h, s) for h in hs for s in ss),
+                    key=lambda t: t[0])
+    hs = np.clip(np.linspace(h0 - 0.05, h0 + 0.05, 11), 0.0, 1.0)
+    ss = np.clip(np.linspace(s0 - 0.25, s0 + 0.25, 11), 1.0, None)
+    e, h, s = min(((err(h, s), h, s) for h in hs for s in ss),
+                  key=lambda t: t[0])
+    e0 = err(0.0, 1.0)
+    if e0 <= e:       # no measurable cache effect: keep the identity factor
+        return CacheCorrection(l2_bytes=l2_bytes, hit_rate=0.0,
+                               speedup=1.0), e0
+    return CacheCorrection(l2_bytes=l2_bytes, hit_rate=float(h),
+                           speedup=float(s)), e

@@ -13,6 +13,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core import collectives as CC
+from repro_torch.core.comm_calibrate import calibrated_interconnect
 from repro_torch.core.schedule import pipeline_stage_schedule
 
 
@@ -144,16 +145,12 @@ def activation_comm_cost(cfg, batch: int, seq: int,
                          device_b: Optional[str] = None) -> float:
     """Predicted seconds for one stage-boundary activation hand-off: a p2p
     transfer of the (batch, seq, d_model) hidden state over the bottleneck
-    interconnect of the two endpoints (``core/collectives.py`` α–β model;
-    an unregistered/None device costs the conservative default NIC).
-
-    The JAX package prefers a measured fit from a comm-calibration
-    artifact here.  Comm calibration is not ported yet (ROADMAP Queue 1
-    item 5), so this takes its no-artifact path, the datasheet
-    ``collectives.interconnect_for``, as ``PM2Lat.interconnect`` does."""
+    interconnect of the two endpoints (``core/collectives.py`` α–β model,
+    measured fits when a comm-calibration artifact carries them; an
+    unregistered/None device costs the conservative default NIC)."""
     nbytes = float(batch) * seq * cfg.d_model * CC.dtype_bytes(
         dtype or "float32")
-    ics = [CC.interconnect_for(d) for d in (device_a, device_b)]
+    ics = [calibrated_interconnect(d) for d in (device_a, device_b)]
     return CC.p2p_time(nbytes, min(ics, key=lambda ic: ic.raw_bus_bw()))
 
 

@@ -8,7 +8,8 @@ kernel id the oracle actually selected (e.g. ``cublas@1024x1024``).  The
 arithmetic is the JAX package's, so the same store and features give
 bit-identical answers.  A decode step is priced as
 ``predict_ops(enumerate_decode_ops(...))``; a ``CollectiveOp`` by the α–β
-model (``core/collectives.py``) under the device's datasheet interconnect.
+model (``core/collectives.py``) under the device's interconnect (a measured
+fit from ``core/comm_calibrate.py`` where one exists, else the datasheet).
 Parallel and training-step prediction price the list schedule of
 ``core/schedule.py`` (imported where it is used: it imports
 ``PredictionRow`` from here).
@@ -21,6 +22,8 @@ from typing import List, Optional, Tuple
 from repro_torch.configs import base as C
 from repro_torch.core import collectives as CC
 from repro_torch.core import opgraph as og
+from repro_torch.core.comm_calibrate import (cache_correction_for,
+                                             calibrated_interconnect)
 from repro_torch.core.memory_model import MemoryModel, class_of
 from repro_torch.core.oracle import KernelOracle
 from repro_torch.core.table import TableStore, ThroughputTable
@@ -41,13 +44,22 @@ class PM2Lat:
         self.oracle = KernelOracle(store, device)
         mm = store.memory_model
         self.memory_model = MemoryModel.from_json(mm) if isinstance(mm, dict) else mm
+        # Measured L2 correction (comm_calibrate artifact): scales the
+        # memory model's bytes term.  None without a calibration artifact —
+        # the bit-identical datasheet path.
+        if self.memory_model is not None and self.memory_model.cache is None:
+            cc = cache_correction_for(device)
+            if cc is not None:
+                self.memory_model = dataclasses.replace(self.memory_model,
+                                                        cache=cc)
 
     @property
     def interconnect(self) -> CC.Interconnect:
         """This device's α–β interconnect (collective-op prediction): the
-        registered datasheet profile, else ``DEFAULT_INTERCONNECT``.  Comm
-        calibration is not ported, so there is no measured fit to prefer."""
-        return CC.interconnect_for(self.device)
+        measured fit when a comm-calibration artifact carries one
+        (``core/comm_calibrate.py``), else the registered datasheet
+        profile, else ``collectives.DEFAULT_INTERCONNECT``."""
+        return calibrated_interconnect(self.device)
 
     # ----- per-op -----
     def _matmul_table(self, op: og.MatmulOp,

@@ -460,20 +460,23 @@ def test_cache_save_needs_a_path():
 
 def test_cache_survives_corrupt_file(tmp_path):
     """A truncated/corrupt persisted cache loads as empty (or keeps its
-    well-formed entries) and the next save atomically replaces it."""
+    well-formed entries: numbers and flat str -> number dicts, as the
+    latency service writes them) and the next save atomically replaces
+    it."""
     path = str(tmp_path / "c.json")
     schema = PredictionCache.SCHEMA
     for garbage in ('{"entries": [["a|b|float32|1|',   # truncated mid-write
                     "null",                            # external partial write
                     '{"schema": %d, "entries": '
                     '[["a", 1, 2], "x", ["b", true], ["d", {"busy": 1.0}], '
-                    '["ok|k", 2e-3]]}'
+                    '["e", {"busy": true}], ["ok|k", 2e-3]]}'
                     % schema):
         with open(path, "w") as f:
             f.write(garbage)
         cache = PredictionCache(maxsize=4, path=path)
-        assert len(cache) <= 1                      # only well-formed entries
+        assert len(cache) <= 2                      # only well-formed entries
     assert cache.get("ok|k") == 2e-3
+    assert cache.get("d") == {"busy": 1.0} and "e" not in cache
     cache.put("k", 1e-3)
     cache.save()
     assert PredictionCache(maxsize=4, path=path).get("k") == 1e-3

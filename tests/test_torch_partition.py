@@ -6,10 +6,11 @@ package's.
 plain Python/numpy on both sides: ``==`` on seeded latencies.  The
 ``plan_*_model`` planners run on both packages' ``BatchPredictor`` over
 ``tests/test_torch_core.py``'s shared store (the JAX engine's
-``_feat_cache`` seeded from the port's rows): ``==`` as well.  The JAX
-package's ``activation_comm_cost`` would read a comm-calibration artifact
-where one exists; the port never does (comm calibration is not ported), so
-these tests point the JAX package's lookup at a file that does not exist."""
+``_feat_cache`` seeded from the port's rows): ``==`` as well.  Both
+packages' ``activation_comm_cost`` read a comm-calibration artifact where
+one exists, so these tests point the lookup (one variable for both) at a
+file that does not exist; ``tests/test_torch_comm_calibrate.py`` holds
+them equal with an artifact."""
 import dataclasses
 
 import numpy as np
