@@ -25,7 +25,12 @@ and its own persisted cache, comm calibration on the card (a loopback
 sweep, the bundled traces, the L2 sweep and its correction, the traces
 replayed against their budgets), what the correction does to the forward
 and decode predictions, and the bf16 serving engine under the service's
-decode admission oracle.  Every phase prints one JSON line; the full
+decode admission oracle.  Then the hybrid path: recurrentgemma-2b at
+full width (RG-LRU blocks and sliding-window attention through the flash
+kernel's hd-256 instances), float32 and bf16, its forward measured and
+predicted, decode steps over a wrapped ring buffer held against the
+forward (with a planted ring fault that must fail), and the ``serve``
+launcher's engine.  Every phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
 (``chiprun_out/comm_calibration.json``, deleted at the start).
@@ -53,6 +58,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.configs import base as C  # noqa: E402
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import comm_calibrate as comm  # noqa: E402
@@ -160,6 +166,31 @@ SERVICE_PROMPTS, SERVICE_NEW, SERVICE_CAPACITY = 12, 32, 8
 SERVICE_SLO_BATCH = 4
 SERVICE_DEVICES = 8
 SERVICE_MM_SHAPE = (BATCH * SEQ, 4864)      # the MLP's w_in at (8, 512)
+# The hybrid phase: recurrentgemma-2b (RG-LRU and local attention at hd 256,
+# window 2048) at full width, built from a seed on the card in float32 and
+# then in bf16, one at a time.  Its forward is measured at HYBRID_FORWARDS
+# ((1, 4096) is where the window masks); the ring check prefills
+# HYBRID_RING_PROMPT tokens at capacity HYBRID_RING_CAPACITY (the 2048-slot
+# ring has wrapped) and takes HYBRID_RING_STEPS decode steps, eagerly and
+# as a CUDA graph, each held against the forward over the whole sequence
+# (the prefill's logits at DECODE_TOL, the steps' at HYBRID_STEP_TOL) and
+# its rings against a prefill of the same tokens (``ring_slots_wrong``);
+# the serving engine runs the launcher's HYBRID_SERVE_ARGS (two waves of 4).
+HYBRID = "recurrentgemma-2b"
+HYBRID_FORWARDS = ((8, 512), (1, 4096))
+HYBRID_RING_BATCH, HYBRID_RING_PROMPT = 2, 2100
+HYBRID_RING_CAPACITY, HYBRID_RING_STEPS = 2200, 32
+# The ring steps' logits limit: DECODE_TOL in float32.  bf16: no sound
+# step of this model meets DECODE_TOL's 3e-2 (PERF.md, the hybrid phase),
+# so the limit is the largest sound step recorded on the H100, 5.77e-2,
+# rounded up.  The planted fault's step moves bf16 logits less (4.81e-2),
+# so no bf16 logits limit sees a ring fault: in bf16 only
+# ``ring_slots_wrong`` does.
+HYBRID_STEP_TOL = {"float32": DECODE_TOL["float32"], "bfloat16": 6e-2}
+HYBRID_SERVE_ARGS = ["--arch", HYBRID, "--requests", "8", "--prompt-len",
+                     "512", "--max-new", "16", "--max-batch", "4",
+                     "--temperature", "0", "--compute-dtype", "bfloat16",
+                     "--seed", "0"]
 
 
 def emit(phase: str, **fields):
@@ -256,7 +287,7 @@ def phase_build():
             elif label.startswith(FFMA_KERNELS):
                 ffma[label] = {op: len(re.findall(rf"\b{op}\b", code))
                                for op in ("FFMA", "HMMA", "HGMMA")}
-    want = len(mk.CONFIGS) + len(fk.CONFIGS) * len(fk.HEAD_DIMS)
+    want = len(mk.CONFIGS) + len(fk.INSTANCES)
     if len(hgmma) != want or not all(hgmma.values()):
         raise AssertionError(f"HGMMA missing from the SASS of a bf16 "
                              f"instance ({want} expected): {hgmma}")
@@ -272,7 +303,8 @@ def phase_build():
                   if "Performance Loss" in line]
     if serialised:
         raise AssertionError(f"ptxas serialised wgmma: {serialised}")
-    # the shared memory the library launches with is what Python budgets
+    # the shared memory the library launches with is what Python budgets,
+    # and it has no instance where Python has none (-1)
     dynamic_smem, bad = {}, []
     for dt in (torch.float32, torch.bfloat16):
         for c in mk.CONFIGS:
@@ -281,7 +313,8 @@ def phase_build():
             bad += [(c.name, str(dt), py, lib)] if py != lib else []
         for c in fk.CONFIGS:
             for hd in fk.HEAD_DIMS:
-                py, lib = c.smem_bytes(hd, dt), fk.library_smem(c, hd, dt)
+                py = c.smem_bytes(hd, dt) if (c, hd) in fk.INSTANCES else -1
+                lib = fk.library_smem(c, hd, dt)
                 dynamic_smem[f"{c.name}/hd{hd}/{dt}"] = lib
                 bad += [(c.name, hd, str(dt), py, lib)] if py != lib else []
     if bad:
@@ -311,9 +344,9 @@ def float32_occupancy(summary, sass):
                   mk.library_blocks_per_sm(c), None)
                  for c in mk.CONFIGS for tm, tn in [c.ffma_tile]]
     instances += [(f"fa_fwd_kernel<{c.bq},{c.bk},{hd},f32>", "flash_attention",
-                   c.threads, c.smem_bytes(hd, torch.float32),
+                   c.threads(hd, torch.float32), c.smem_bytes(hd, torch.float32),
                    fk.library_blocks_per_sm(c, hd), hd)
-                  for c in fk.CONFIGS for hd in fk.HEAD_DIMS]
+                  for c, hd in fk.INSTANCES]
     for label, source, threads, smem, lib, hd in instances:
         f = summary[source].get(label)
         if f is None:
@@ -425,14 +458,32 @@ def schedule_path_cases():
             for B, S in shapes if (B, S) not in have]
 
 
+def hybrid_path_cases():
+    """The flash calls of the hybrid path (recurrentgemma-2b's local
+    attention: 10 query heads over 1 KV head at hd 256, causal, window
+    2048): the measured forwards HYBRID_FORWARDS, the ring check's prefill
+    and forward, and the serving engine's prefill (``check_served``'s
+    too)."""
+    c = cfg_registry.get(HYBRID)
+    serve = serve_launcher.parse_args(HYBRID_SERVE_ARGS)
+    shapes = sorted(set(HYBRID_FORWARDS) | {
+        (HYBRID_RING_BATCH, HYBRID_RING_PROMPT),
+        (HYBRID_RING_BATCH, HYBRID_RING_PROMPT + HYBRID_RING_STEPS),
+        (serve.max_batch, serve.prompt_len)})
+    return [(B, S, S, c.n_heads, c.n_kv_heads, c.head_dim, True,
+             c.sliding_window, None) for B, S in shapes]
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
-    and unequal lengths (bottom-right causal alignment), both configs; in
-    bf16 every (config, hd) goes through TMA, and strided views (TMA) and
-    tensors 2 bytes off alignment or with an odd row stride (the second
-    load path) are added; then the decode and serve paths' shapes
-    (``decode_path_cases``), the grid path's (``grid_path_cases``) and
-    the schedule path's (``schedule_path_cases``)."""
+    and unequal lengths (bottom-right causal alignment), every config
+    instantiated at the case's head dim (``fk.INSTANCES``: fa_64x64 alone
+    at hd 256); in bf16 every (config, hd) goes through TMA, and strided
+    views (TMA) and tensors 2 bytes off alignment or with an odd row
+    stride (the second load path) are added; then the decode and serve
+    paths' shapes (``decode_path_cases``), the grid path's
+    (``grid_path_cases``), the schedule path's (``schedule_path_cases``)
+    and the hybrid path's (``hybrid_path_cases``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -450,13 +501,19 @@ def check_flash(dtypes):
         (1, 150, 201, 4, 2, 64, True, None, "offset"),   # 2 bytes off
         (1, 129, 129, 2, 1, 128, False, None, "offset"),
         (1, 100, 100, 2, 2, 32, True, None, "odd_row"),  # odd sequence stride
-    ] + decode_path_cases() + grid_path_cases() + schedule_path_cases()
+        (2, 130, 130, 4, 2, 256, True, 40, None),       # hd 256
+        (1, 77, 77, 2, 2, 256, False, None, None),
+        (1, 150, 201, 4, 2, 256, True, None, "offset"),
+    ] + decode_path_cases() + grid_path_cases() + schedule_path_cases() \
+        + hybrid_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
         for dname in dtypes:
             dt = getattr(torch, dname)
             for B, Sq, Skv, H, Hkv, hd, causal, window, layout in cases:
+                if (cfg, hd) not in fk.INSTANCES:
+                    continue
                 if layout == "fused":
                     qkv = torch.randn(B, Sq, H + 2 * Hkv, hd, generator=gen,
                                       device="cuda").to(dt)
@@ -704,13 +761,18 @@ def forward_trace(fn, *args):
 
 
 def hand_launches():
+    """Each hand kernel's launches, and the flash kernel's by head dim
+    (``flash_attention@hd<hd>``, as its wrapper counts them)."""
+    by_hd = fk.flash_attention_kernel.launches_by_hd
     return {"matmul": mk.matmul_kernel.launches,
-            "flash_attention": fk.flash_attention_kernel.launches}
+            "flash_attention": fk.flash_attention_kernel.launches,
+            **{f"flash_attention@hd{hd}": n for hd, n in sorted(by_hd.items())}}
 
 
 def reset_launches():
     mk.matmul_kernel.launches = 0
     fk.flash_attention_kernel.launches = 0
+    fk.flash_attention_kernel.launches_by_hd.clear()
 
 
 def phase_decode(store):
@@ -821,8 +883,8 @@ def decode_check(model, cfg, tokens):
 
 
 def launches_since(before):
-    return {k: v - before[k] for k, v in hand_launches().items()
-            if v != before[k]}
+    return {k: v - before.get(k, 0) for k, v in hand_launches().items()
+            if v != before.get(k, 0)}
 
 
 def decode_record(model, pm, cfg, tokens):
@@ -1954,7 +2016,274 @@ def service_plans(svc, cfg0):
     return out
 
 
-def kernel_lines(launches, mm_pick):
+def phase_hybrid(store):
+    """recurrentgemma-2b at full width (26 layers, d 2560, 10/1 heads at hd
+    256, window 2048, vocab 256,000), float32 then bf16, each built from
+    seed 0 on the card and freed before the next.  (b) the forward at
+    HYBRID_FORWARDS, measured and against the store's prediction
+    (``hybrid_forward``); (c) the wrapped ring's decode steps against the
+    forward and (d) a ring write one slot off, which (c)'s check must
+    reject (``hybrid_ring``); (e) the launcher's bf16 engine over two
+    waves, every token held against eager steps (``hybrid_serve``).  The
+    hd-256 flash instances are held against their plain version at this
+    path's shapes by ``check_flash`` ((a), ``hybrid_path_cases``) and timed
+    in the ``kernels`` line ((f)).  Fails if a check of (b)-(e) fails."""
+    t0 = time.perf_counter()
+    cfg0 = cfg_registry.get(HYBRID)
+    pm = PM2Lat(store, store.meta["device"])
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    forwards, rings = [], []
+    for dname in DTYPES:
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        model = model_registry.build(cfg, device="cuda", seed=0)
+        if dname != "float32":
+            model.cast_weights_(getattr(torch, dname))
+        with torch.no_grad():
+            for B, S in HYBRID_FORWARDS:
+                tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=gen, device="cuda")
+                forwards.append(hybrid_forward(model, pm, cfg, tokens))
+            tokens = torch.randint(
+                0, cfg.vocab_size, (HYBRID_RING_BATCH, HYBRID_RING_PROMPT
+                                    + HYBRID_RING_STEPS),
+                generator=gen, device="cuda")
+            rings.append(hybrid_ring(model, pm, cfg, tokens))
+        del model
+    torch.cuda.empty_cache()
+    served = hybrid_serve(pm)
+    torch.cuda.empty_cache()
+    rec = {"forwards": forwards, "rings": rings, "serve": served,
+           "l2_correction": pm.memory_model.cache is not None,
+           "seconds": time.perf_counter() - t0}
+    emit("hybrid", seconds=rec["seconds"])
+    bad = [f"forward {r['dtype']} {r['batch']}x{r['seq']}: {r['failed']}"
+           for r in forwards if r["failed"]]
+    bad += [f"ring {r['dtype']}: {r['failed']}" for r in rings if r["failed"]]
+    bad += [f"serve: {served['failed']}"] if served["failed"] else []
+    if bad:
+        raise AssertionError(f"hybrid: {bad}")
+    return rec
+
+
+def hybrid_forward(model, pm, cfg, tokens):
+    """(b) One forward at (B, S) = ``tokens.shape``: finite logits of the
+    padded vocab, one flash launch a local-attention layer; its time
+    (CUDA events, ``profiler.measure``) and trace against ``predict_model``
+    (its top rows, and the share of the time each layer kind's rows
+    take)."""
+    B, S = tokens.shape
+    dname = cfg.compute_dtype
+    before = fk.flash_attention_kernel.launches
+    logits = model(tokens)
+    torch.cuda.synchronize()
+    flash = fk.flash_attention_kernel.launches - before
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    measured = profiler.measure(model, tokens)
+    trace = forward_trace(model, tokens)
+    total, rows = pm.predict_model(cfg, B, S, dtype=dname)
+    by_kind = {}
+    for r in rows:
+        kind = r.name.split(".")[0]
+        by_kind[kind] = by_kind.get(kind, 0.0) + r.seconds * 1e3
+    n_local = cfg.layer_kinds.count(C.LOCAL_ATTN)
+    failed = [] if finite else ["logits not finite"]
+    failed += [] if shape == [B, S, model.padded_vocab] else [f"shape {shape}"]
+    failed += [] if flash == n_local else [f"{flash} flash launches, "
+                                           f"expected {n_local}"]
+    rec = {"dtype": dname, "batch": B, "seq": S, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "window": cfg.sliding_window,
+           "logits_shape": shape, "logits_finite": finite,
+           "flash_launches_per_forward": flash,
+           "measured_ms": measured * 1e3, "predicted_ms": total * 1e3,
+           "err_pct": 100 * abs(total - measured) / measured,
+           "predicted_ms_by_kind": by_kind,
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "device_trace": trace, "failed": failed}
+    emit("hybrid_forward", **rec)
+    return rec
+
+
+def ring_slots_wrong(cfg, cache, seeded):
+    """The ring slots of ``cache``'s local-attention layers (K and V, each
+    batch row and KV head) whose nearest slot of ``seeded``, the caches of
+    a prefill over the same tokens, is another slot: 0 when every slot
+    holds the position it should.  No limit: two positions' K or V differ
+    far more than two paths' rounding of one position's."""
+    wrong = 0
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind == C.LOCAL_ATTN:
+            for got, want in ((cache.k[i], seeded.k[i]),
+                              (cache.v[i], seeded.v[i])):
+                near = torch.cdist(got.float(), want.float()).argmin(-1)
+                slot = torch.arange(near.shape[-1], device=near.device)
+                wrong += int((near != slot).sum())
+    return wrong
+
+
+def hybrid_ring(model, pm, cfg, tokens):
+    """(c) Prefill HYBRID_RING_PROMPT tokens at capacity
+    HYBRID_RING_CAPACITY, so that every local layer's ring of min(2048,
+    capacity) slots has wrapped, then HYBRID_RING_STEPS decode steps
+    eagerly and the same steps as a replayed CUDA graph (``DecodeGraph``):
+    the prefill's and each step's logits against the forward over all the
+    tokens at that position (max |d| / max |logits|; the prefill within
+    DECODE_TOL, the steps within HYBRID_STEP_TOL), the rings after the
+    steps slot for slot against a prefill of all the tokens
+    (``ring_slots_wrong``), the replay equal to the eager step bit for bit,
+    no hand kernel launched in a step.  (d) The first step again with
+    every ring write one slot late (``attn.ring_slots`` patched for that
+    step): its rings must fail the slot check against a prefill of one
+    token more, and in float32 its logits the limit (bf16's limit lies
+    above what the fault moves there: its error is reported).  Times both
+    steps (the graph's is the one predicted)."""
+    dname = cfg.compute_dtype
+    B, T = tokens.shape
+    P, n = HYBRID_RING_PROMPT, T - HYBRID_RING_PROMPT
+    want = model(tokens)[:, P - 1:].float().clone()   # positions P - 1 ..
+    scale = want.abs().max()
+    rel = lambda x, t: float((x.float() - want[:, t]).abs().max() / scale)
+    # the caches a prefill seeds over all the tokens and over one more
+    # than the prompt: the rings the steps and the faulty step must reach
+    full, one_more = (model.prefill(tokens[:, :S],
+                                    max_len=HYBRID_RING_CAPACITY)[1]
+                      for S in (T, P + 1))
+    last, cache = model.prefill(tokens[:, :P], max_len=HYBRID_RING_CAPACITY)
+    prefill_err = rel(last, 0)
+    tol = HYBRID_STEP_TOL[dname]
+    ring = min(cache.k[i].shape[2] for i, k in enumerate(cfg.layer_kinds)
+               if k == C.LOCAL_ATTN)
+    start = cache.clone()
+    before = hand_launches()
+    eager, errs = [], []
+    for t in range(n):
+        logits, _ = model.decode_step(tokens[:, P + t], cache)
+        eager.append(logits.clone())
+        errs.append(rel(logits, t + 1))
+    slots_wrong = ring_slots_wrong(cfg, cache, full)
+    late = start.clone()
+    ring_slots = attn.ring_slots
+    attn.ring_slots = lambda pos, W: ((pos + 1) % W, ring_slots(pos, W)[1])
+    try:
+        wrong, _ = model.decode_step(tokens[:, P], late)
+    finally:
+        attn.ring_slots = ring_slots
+    fault_err = rel(wrong, 1)
+    fault_slots_wrong = ring_slots_wrong(cfg, late, one_more)
+    del late, wrong, full, one_more
+    graph = DecodeGraph(model, start).load(start)
+    graph_errs, bitwise = [], True
+    for t in range(n):
+        logits = graph(tokens[:, P + t])
+        graph_errs.append(rel(logits, t + 1))
+        bitwise = bitwise and bool(torch.equal(logits, eager[t]))
+    in_step = launches_since(before)
+    tok = tokens[:, T - 1].contiguous()
+
+    def eager_step():
+        cache.pos.fill_(T - 1)
+        return model.decode_step(tok, cache)
+
+    def graph_step():
+        graph.cache.pos.fill_(T - 1)
+        return graph(tok)
+
+    eager_s, graph_s = profiler.measure(eager_step), profiler.measure(graph_step)
+    predicted, _ = pm.predict_ops(og.enumerate_decode_ops(cfg, B, T,
+                                                          dtype=dname))
+    checks = {"prefill_logits_ok": prefill_err <= DECODE_TOL[dname],
+              "logits_ok": max(errs + graph_errs) <= tol,
+              "ring_slots_ok": slots_wrong == 0,
+              "graph_bitwise": bitwise,
+              "planted_fault_in_ring": fault_slots_wrong > 0,
+              "no_hand_launch_in_step": not in_step}
+    if dname == "float32":
+        checks["planted_fault_in_logits"] = fault_err > tol
+    rec = {"dtype": dname, "batch": B, "prompt": P, "steps": n,
+           "capacity": cache.capacity, "ring_slots": ring,
+           "wrapped": P > ring, "prefill_logits_rel_err": prefill_err,
+           "logits_rel_err": max(errs), "graph_logits_rel_err":
+           max(graph_errs), "logits_rel_err_by_step": errs,
+           "prefill_logits_tol": DECODE_TOL[dname], "logits_tol": tol,
+           "ring_slots_wrong": slots_wrong,
+           "planted_fault_rel_err": fault_err,
+           "planted_fault_ring_slots_wrong": fault_slots_wrong,
+           "hand_launches_in_step": in_step,
+           "cache_bytes": cache.nbytes,
+           "kv_cache_bytes_predictor": og.kv_cache_bytes(cfg, B, T, dname),
+           "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
+           "predicted_step_ms": predicted * 1e3,
+           "err_pct": 100 * abs(predicted - graph_s) / graph_s,
+           "checks": checks,
+           "failed": [k for k, ok in checks.items() if not ok]}
+    emit("hybrid_ring", **rec)
+    return rec
+
+
+def hybrid_serve(pm):
+    """(e) The ``serve`` launcher's engine at HYBRID_SERVE_ARGS: 8 prompts
+    of 512 tokens, 16 new each, in two waves of 4, greedy, bf16.  Fails
+    unless every request ends with its 16 tokens, the flash kernel launched
+    once a local layer a wave and every served token equals eager steps'
+    (``check_served``, run after the launches are read).  Prices the prompt
+    and the decode steps over the contexts they ran at."""
+    args = serve_launcher.parse_args(HYBRID_SERVE_ARGS)
+    cfg = dataclasses.replace(cfg_registry.get(HYBRID),
+                              compute_dtype=args.compute_dtype)
+    before = hand_launches()
+    engine, done = serve_launcher.serve(args)
+    flash = launches_since(before).get("flash_attention", 0)
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    st = engine.stats
+    waves = -(-args.requests // args.max_batch)
+    want_flash = cfg.layer_kinds.count(C.LOCAL_ATTN) * waves
+    failed = [] if sorted({len(r.out_tokens) for r in done}) == [
+        args.max_new] else ["tokens each"]
+    failed += [] if flash == want_flash else [f"{flash} flash launches, "
+                                              f"expected {want_flash}"]
+    failed += [f"requests unlike the eager steps {served['mismatched']}"] \
+        if served["mismatched"] else []
+    rec = {**out, "requests": len(done), "prefills": st.prefills,
+           "capacity": engine.max_len,
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "tpot_p50_ms": st.tpot_p50 * 1e3,
+           "tpot_p95_ms": st.tpot_p95 * 1e3, "flash_launches": flash,
+           "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "wall_s": engine.wall_s, "failed": failed}
+    emit("hybrid_serve", **rec)
+    del engine
+    return rec
+
+
+def bound(nbytes, flops, dname="bfloat16"):
+    """(the least ms the card could take to move ``nbytes`` and do
+    ``flops`` in ``dname``, which of the two bounds it)."""
+    t_bytes = nbytes / H100_SXM.hbm_bw
+    t_ops = flops / H100_SXM.peak(dname)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def timed(run, *args):
+    """One call's ms (CUDA events, ``profiler.measure``) and its device
+    ms (``torch.profiler``)."""
+    dev = device_ms(run, *args)
+    return {"ms": profiler.measure(run, *args) * 1e3,
+            "device_ms": "not measured" if dev is None else dev}
+
+
+def kernel_lines(by_path, mm_pick):
     """Each hand kernel in bf16 at the main path's shapes: its time (and
     each config's), its own device time, its plain version's time, one
     PyTorch call's (a yardstick only), and the card's bound.  The matmul is
@@ -1963,21 +2292,15 @@ def kernel_lines(launches, mm_pick):
     the same numbers for the float32 instances (FFMA) at the same shapes,
     headed by ``mm_128x128x128`` (matmul) or the config ``select_config``
     picks (flash); the matmul's adds its time at the card-filling shape
-    MM_FULL.  Every number here is measured, but ``bound_ms``."""
+    MM_FULL.  The flash line's ``hd256`` holds the same numbers for the
+    hd-256 instances at the hybrid path's shapes (``flash_hd256``) and
+    their launches on each path.  ``by_path``: each path's
+    ``hand_launches``; ``launches`` is the main path's.  Every number here
+    is measured, but ``bound_ms``."""
+    launches = by_path["main"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
     lines = []
-
-    def bound(nbytes, flops, dname="bfloat16"):
-        t_bytes = nbytes / H100_SXM.hbm_bw
-        t_ops = flops / H100_SXM.peak(dname)
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                           else "operations")
-
-    def timed(run, *args):
-        dev = device_ms(run, *args)
-        return {"ms": profiler.measure(run, *args) * 1e3,
-                "device_ms": "not measured" if dev is None else dev}
 
     def each_config(configs, run, want, tol, args, extra=lambda c: {}):
         """One row per config: its error against ``want``, its times, and
@@ -2002,6 +2325,44 @@ def kernel_lines(launches, mm_pick):
                 "plain_ms": profiler.measure(plain, *args) * 1e3,
                 "bound_ms": bms, "bound_by": by, "library_ms": libt["ms"],
                 "library_device_ms": libt["device_ms"], "configs": configs}
+
+    def flash_hd256(B, S, dt):
+        """One hd-256 case: recurrentgemma-2b's local attention at (B, S)
+        in ``dt``, 10 query heads over 1 KV head, causal, window W, as the
+        model calls it, in the config ``select_config`` picks.  Bounds count
+        the pairs the window keeps (``window_pairs``); the library call is
+        SDPA over KV heads repeated to 10, with the window as a boolean
+        mask where it masks (S > W)."""
+        h = cfg_registry.get(HYBRID)
+        W, Hq, dname = h.sliding_window, h.n_heads, str(dt).split(".")[1]
+        args = tuple(torch.randn(B, S, n, h.head_dim, generator=gen,
+                                 device="cuda").to(dt)
+                     for n in (Hq, h.n_kv_heads, h.n_kv_heads))
+        fcfg = fk.select_config(S, S, h.head_dim)
+        kw = dict(causal=True, window=W, q_offset=0)
+        run = lambda cfg, q, k, v: fk.flash_attention_kernel(q, k, v, cfg,
+                                                             **kw)
+        plain = lambda cfg, q, k, v: fk.flash_attention_plain(q, k, v, cfg,
+                                                              **kw)
+        row, = each_config([fcfg], run, plain,
+                           flash_tol(*args, fcfg, dname, kw), args)
+        bms, by = bound(args[0].element_size() * 2 * (args[0].numel()
+                                                      + args[1].numel()),
+                        4.0 * B * Hq * h.head_dim * window_pairs(S, W), dname)
+        i = torch.arange(S, device="cuda")
+        mask = None if S <= W else \
+            (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+        lib = timed(lambda q, k, v: torch.nn.functional
+                    .scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=mask is None),
+                    *(x.repeat_interleave(Hq // x.shape[2], dim=2)
+                      .transpose(1, 2).contiguous() for x in args))
+        return {**row, "shape": [B, S, Hq, h.n_kv_heads, h.head_dim],
+                "window": W, "dtype": dname, "path": fk.load_path(*args),
+                "plain_ms": profiler.measure(
+                    lambda *x: plain(fcfg, *x), *args) * 1e3,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
+                "library_device_ms": lib["device_ms"]}
 
     m, n, k = MM_SHAPE
     a = torch.randn(m, k, generator=gen, device="cuda").to(bf)
@@ -2072,6 +2433,7 @@ def kernel_lines(launches, mm_pick):
     sdpa = lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True)
     lib = timed(sdpa, *map(per_head, (q, kk, vv)))
+
     f32_args = tuple(x.float() for x in (q, kk, vv))
     pick32 = fk.select_config(S, S, hd, f32)
     f32_configs = each_config(
@@ -2097,14 +2459,31 @@ def kernel_lines(launches, mm_pick):
             pick32.name, f32_configs,
             lambda q, k, v: fk.flash_attention_plain(q, k, v, pick32,
                                                      causal=True),
-            f32_args, sdpa, tuple(map(per_head, f32_args)), nbytes, flops)})
+            f32_args, sdpa, tuple(map(per_head, f32_args)), nbytes, flops),
+        "hd256": {"launches_by_path": {p: n.get("flash_attention@hd256", 0)
+                                       for p, n in by_path.items()},
+                  "cases": [flash_hd256(B, S, dt) for dt in (bf, f32)
+                            for B, S in HYBRID_FORWARDS]}})
     for line in lines:
+        line["launches_by_path"] = {p: n[line["name"]]
+                                    for p, n in by_path.items()}
         f = line["float32"]
         if not (line["ok"] and f["ok"] and f.get("card_filling", f)["ok"]):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
+    cases = lines[-1]["hd256"]["cases"]
+    if not all(c["ok"] for c in cases):
+        raise AssertionError(f"flash hd 256 at the hybrid path's shapes: "
+                             f"max errs {[c['max_abs_err'] for c in cases]}")
     return lines
+
+
+def window_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal mask with ``window`` keeps in an S x S
+    square: query q sees min(q + 1, window) keys."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
 
 
 def matmul_floors(f32):
@@ -2215,8 +2594,11 @@ def main() -> int:
     reset_launches()
     service = phase_service(store, model, decode)
     by_path["service"] = hand_launches()
+    reset_launches()
+    hybrid = phase_hybrid(store)
+    by_path["hybrid"] = hand_launches()
     emit("path_launches", **by_path)
-    for path in ("decode", "serve", "grid", "schedule", "service"):
+    for path in ("decode", "serve", "grid", "schedule", "service", "hybrid"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -2224,16 +2606,14 @@ def main() -> int:
     m, n, _ = MM_SHAPE
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
         "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
-    kernels = kernel_lines(launches, mm_pick)
-    for line in kernels:
-        line["launches_by_path"] = {p: n[line["name"]]
-                                    for p, n in by_path.items()}
+    kernels = kernel_lines(by_path, mm_pick)
     floors = matmul_floors(next(x for x in kernels
                                 if x["name"] == "matmul")["float32"])
     emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
-                  schedule=schedule, service=service, kernels=kernels,
+                  schedule=schedule, service=service, hybrid=hybrid,
+                  kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -55,7 +55,12 @@
 // bound by 67 TFLOP/s: the full square at qwen2-0.5b prefill is 7.52
 // GFLOP, 0.112 ms.  2 BQ threads a block in a (BQ/8) x 16 grid; each owns
 // 8 query rows (two groups of 4, ty*4 and BQ/2 + ty*4) by BK/16 key columns
-// (tx + 16 c) of S, and the same 8 rows by hd/16 columns of O.  Shared
+// (tx + 16 c) of S, and the same 8 rows by hd/16 columns of O.  At hd 256
+// that would be 128 accumulators of O and 32 of S a thread, past what
+// ptxas holds without spilling at hd 128's 64 + 32: there a thread owns 4
+// query rows (ty*4, one group) and the block has 4 BQ threads in a (BQ/4)
+// x 16 grid, so O and S take 64 + 16 registers and no product is done
+// twice.  Shared
 // memory: the scaled Q tile [BQ][hd], K [BK][hd + 4], V [BK][hd] and P^T
 // [BK][BQ + 4], all f32.  S = Q K^T takes, per 4 steps of d, 8 float4 of Q
 // (one address per warp half: a broadcast) and BK/16 float4 of K (the
@@ -68,7 +73,17 @@
 // overlaps a product.  At hd <= 64 every instance holds 8 warps an SM or
 // more (fa_128x128: one block of 8; fa_64x64: three blocks of 4).
 // Where the four tiles pass 227 KB (fa_128x128 at hd 128), P is written
-// over K, and K's next copy waits for O += P V.
+// over K, and K's next copy waits for O += P V.  At hd 256 only fa_64x64
+// is built: its four tiles take 215,040 bytes, fa_128x128's would not fit
+// even with P over K (395,264).
+//
+// hd 256 in bf16 (fa_64x64 only: fa_128x128's tiles would take 328,960
+// bytes): one warpgroup of 128 threads, so ptxas may give a thread 255
+// registers, and its 64 x 256 f32 O tile (128 a thread) with S (32) and P
+// (16) fit.  O += P V is two wgmma.m64n128k16 a k-step, one for each half
+// of O's columns (V's 64-column chunks 0-1 and 2-3).  TMA boxes stay 64
+// columns wide.  These instances serve recurrentgemma-2b's local
+// attention (10 query heads over 1 KV head, window 2048).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,14 +97,16 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// One float32 instance.  THREADS = 2 BQ threads in a TY x 16 grid; thread
-// (ty, tx) owns TM = 8 query rows, ty*4 + {0..3} and BQ/2 + ty*4 + {0..3},
-// for both S and O; key columns tx + 16 c (c < TN) of S; and, in OG groups
-// of OV, columns g * (HD / OG) + tx * OV + {0..OV-1} of O.
+// One float32 instance.  THREADS = 16 BQ / TM threads in a TY x 16 grid;
+// thread (ty, tx) owns TM query rows, ty*4 + {0..3} in each of NG = TM / 4
+// groups BQ / NG rows apart (TM = 8 up to hd 128, 4 at hd 256), for both S
+// and O; key columns tx + 16 c (c < TN) of S; and, in OG groups of OV,
+// columns g * (HD / OG) + tx * OV + {0..OV-1} of O.
 template <int BQ, int BK, int HD>
 struct FaFfma {
   static constexpr int TX = 16;                    // threads along keys
-  static constexpr int TM = 8;                     // query rows a thread owns
+  static constexpr int TM = HD > 128 ? 4 : 8;      // query rows a thread owns
+  static constexpr int NG = TM / 4;                // in groups of 4, BQ/NG apart
   static constexpr int TY = BQ / TM;               // threads along queries
   static constexpr int THREADS = TX * TY;
   static constexpr int TN = BK / TX;               // key columns a thread owns
@@ -106,7 +123,8 @@ struct FaFfma {
   static constexpr bool ALIAS = 4 * (QF + KF + VF + PF) > 232448;
   static constexpr int KPF = ALIAS ? (KF > PF ? KF : PF) : KF + PF;
   static constexpr size_t SMEM = 4 * (size_t)(QF + KPF + VF);
-  static_assert(BQ % 32 == 0 && BK % TX == 0 && HD % TX == 0, "bad tile");
+  static_assert(BQ % 32 == 0 && BK % TX == 0 && HD % TX == 0 && TM % 4 == 0,
+                "bad tile");
   static_assert(OC == 1 || OC == 2 || OC % 4 == 0, "bad head dim");
 };
 
@@ -119,7 +137,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               int Sq, int Skv, int causal, int window, int q_offset, float scale) {
   using S = FaFfma<BQ, BK, HD>;
   using namespace simt;
-  constexpr int TM = S::TM, TN = S::TN, TX = S::TX, NT = S::THREADS;
+  constexpr int TM = S::TM, TN = S::TN, TX = S::TX, NT = S::THREADS, NG = S::NG;
   constexpr int OC = S::OC, OV = S::OV, OG = S::OG, KS = S::KS, PS = S::PS;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -137,7 +155,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qh = q + (size_t)b * Sq * q_row + (size_t)h * HD;
   const float* kh = k + (size_t)b * Skv * kv_row + (size_t)hk * HD;
   const float* vh = v + (size_t)b * Skv * kv_row + (size_t)hk * HD;
-  auto row = [&](int r) { return (r / 4) * (BQ / 2) + ty * 4 + r % 4; };
+  auto row = [&](int r) { return (r / 4) * (BQ / NG) + ty * 4 + r % 4; };
 
   // K or V rows [k0, k0 + BK) into dst (row stride ds) by 16-byte copies,
   // zeros past Skv.
@@ -243,25 +261,28 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
       float* pr = Ps + (tx + TX * c) * PS + ty * 4;
-      st4(pr, make_float4(s[0][c], s[1][c], s[2][c], s[3][c]));
-      st4(pr + BQ / 2, make_float4(s[4][c], s[5][c], s[6][c], s[7][c]));
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+        st4(pr + g * (BQ / NG), make_float4(s[4 * g][c], s[4 * g + 1][c],
+                                            s[4 * g + 2][c], s[4 * g + 3][c]));
     }
     cp_async_wait<0>();                // V tile j
     __syncthreads();                   // P and V visible; K free
     if (!S::ALIAS && j + 1 < NKV) load_kv(Ks, KS, kh, k0 + BK);
     cp_async_commit();                 // K's next copy overlaps O += P V
 
-    // O += P V: per key, 2 float4 of P (a broadcast) and OG vectors of V.
+    // O += P V: per key, NG float4 of P (a broadcast) and OG vectors of V.
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 pa = ld4(Ps + kk * PS + ty * 4);
-      const float4 pb = ld4(Ps + kk * PS + BQ / 2 + ty * 4);
+      float4 pg[NG];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) pg[g] = ld4(Ps + kk * PS + g * (BQ / NG) + ty * 4);
       float vv[OC];
 #pragma unroll
       for (int g = 0; g < OG; ++g) ldv<OV>(Vs + kk * HD + g * (HD / OG) + tx * OV, vv + g * OV);
 #pragma unroll
       for (int r = 0; r < TM; ++r) {
-        const float p = lane(r < 4 ? pa : pb, r % 4);
+        const float p = lane(pg[r / 4], r % 4);
 #pragma unroll
         for (int c = 0; c < OC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
       }
@@ -341,8 +362,10 @@ struct FaWgmma {
   static constexpr int ST = 2;                     // ring stages
   // 1024 bytes of slack to align the tiles, 256 for the barriers.
   static constexpr size_t SMEM = 1024 + (size_t)Q_BYTES + 2 * ST * KV_BYTES + 256;
+  static constexpr int ON = HD < 128 ? HD : 128;   // O columns a P V wgmma covers
   static_assert(BQ % 64 == 0 && (BK == 64 || BK == 128), "bad tile");
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "bad head dim");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128 || HD == 256,
+                "bad head dim");
 };
 
 template <int BQ, int BK, int HD>
@@ -524,16 +547,21 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       oacc[4 * jj + 3] *= corr1;
     }
 
-    // O += P V, P from registers, V MN-major from shared memory.
+    // O += P V, P from registers, V MN-major from shared memory; at hd 256
+    // one product for each half of O's columns (ON = 128).
     if (tma) mbar_wait(vfull(s), (j / S::ST) & 1);
     const uint32_t v_base = smem_u32(sv(s));
     fence_regs<HD / 2>(oacc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = make_desc<S::SW>(v_base + kk * 16 * S::CH * 2,
-                                           BK * S::CH * 2, 8 * S::CH * 2);
-      wgmma_rs<HD, 1>(oacc, pa[kk], db);
+#pragma unroll
+      for (int n = 0; n < HD / S::ON; ++n) {
+        const uint64_t db = make_desc<S::SW>(
+            v_base + n * (S::ON / S::CH) * BK * S::CH * 2 + kk * 16 * S::CH * 2,
+            BK * S::CH * 2, 8 * S::CH * 2);
+        wgmma_rs<S::ON, 1>(oacc + n * (S::ON / 2), pa[kk], db);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -640,6 +668,7 @@ extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int pat
     PM2LAT_FA_F32(64, 64, 32)
     PM2LAT_FA_F32(64, 64, 64)
     PM2LAT_FA_F32(64, 64, 128)
+    PM2LAT_FA_F32(64, 64, 256)
     PM2LAT_FA_F32(128, 128, 16)
     PM2LAT_FA_F32(128, 128, 32)
     PM2LAT_FA_F32(128, 128, 64)
@@ -655,6 +684,7 @@ extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int pat
     PM2LAT_FA_BF16(64, 64, 32)
     PM2LAT_FA_BF16(64, 64, 64)
     PM2LAT_FA_BF16(64, 64, 128)
+    PM2LAT_FA_BF16(64, 64, 256)
     PM2LAT_FA_BF16(128, 128, 16)
     PM2LAT_FA_BF16(128, 128, 32)
     PM2LAT_FA_BF16(128, 128, 64)
@@ -676,6 +706,7 @@ extern "C" long long pm2lat_flash_attention_smem(int bq, int bk, int hd, int dty
   PM2LAT_FA_SMEM(64, 64, 32)
   PM2LAT_FA_SMEM(64, 64, 64)
   PM2LAT_FA_SMEM(64, 64, 128)
+  PM2LAT_FA_SMEM(64, 64, 256)
   PM2LAT_FA_SMEM(128, 128, 16)
   PM2LAT_FA_SMEM(128, 128, 32)
   PM2LAT_FA_SMEM(128, 128, 64)
@@ -696,6 +727,7 @@ extern "C" long long pm2lat_flash_attention_blocks_per_sm(int bq, int bk, int hd
   PM2LAT_FA_OCC(64, 64, 32)
   PM2LAT_FA_OCC(64, 64, 64)
   PM2LAT_FA_OCC(64, 64, 128)
+  PM2LAT_FA_OCC(64, 64, 256)
   PM2LAT_FA_OCC(128, 128, 16)
   PM2LAT_FA_OCC(128, 128, 32)
   PM2LAT_FA_OCC(128, 128, 64)

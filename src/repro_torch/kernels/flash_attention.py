@@ -8,15 +8,19 @@ and sliding-window masks that ADD ``NEG_INF = -1e30``, f32 m/l/acc, l
 clamped at 1e-30, every KV tile visited.  Like the matmul kernel, the
 (bq, bk) block configuration is a PM2Lat kernel identity (``fa_<bq>x<bk>``).
 
-The TPU family was re-derived for hd <= 128: a 512x512 f32 score tile is
+The TPU family was re-derived for the card: a 512x512 f32 score tile is
 1 MiB, against 227 KB of shared memory a block.  Kept: ``fa_128x128``;
-added: ``fa_64x64``.  float32 runs register-tiled FFMA on the CUDA cores:
-2·bq threads, each holding 8 query rows by bk/16 keys of S and the same
-rows by hd/16 columns of O in registers, with K and V tiles copied by
-cp.async so that each copy overlaps a product; bfloat16 runs ``wgmma`` on
-the tensor cores, one warpgroup per 64 query rows, with K and V tiles fed
-by TMA through a two-stage ring and a second load path for tensors TMA
-cannot address (``load_path``).  Both have ``threads`` threads a block.
+added: ``fa_64x64``.  Head dims 16 to 128 have both; hd 256
+(recurrentgemma-2b, gemma-7b) has ``fa_64x64`` only, since
+``fa_128x128``'s tiles pass 227 KB there in either type (``INSTANCES``).
+float32 runs register-tiled FFMA on the CUDA cores: 2·bq threads, each
+holding 8 query rows by bk/16 keys of S and the same rows by hd/16 columns
+of O in registers (at hd 256, 4·bq threads of 4 rows each), with K and V
+tiles copied by cp.async so that each copy overlaps a product; bfloat16
+runs ``wgmma`` on the tensor cores, one warpgroup per 64 query rows, with
+K and V tiles fed by TMA through a two-stage ring and a second load path
+for tensors TMA cannot address (``load_path``).  Both have
+``threads(hd, dtype)`` threads a block.
 """
 from __future__ import annotations
 
@@ -41,11 +45,12 @@ class FlashConfig:
     def name(self) -> str:
         return f"fa_{self.bq}x{self.bk}"
 
-    @property
-    def threads(self) -> int:
-        """Threads of one block in either type: 2·bq (float32: a (bq/8) x 16
-        grid; bfloat16: one warpgroup per 64 query rows)."""
-        return 2 * self.bq
+    def threads(self, hd: int, dtype: torch.dtype) -> int:
+        """Threads of one block: 2·bq in bfloat16 (one warpgroup per 64
+        query rows) and in float32 up to hd 128 (a (bq/8) x 16 grid of 8
+        query rows each); 4·bq in float32 at hd 256 (4 rows each)."""
+        return 4 * self.bq if dtype == torch.float32 and hd > 128 \
+            else 2 * self.bq
 
     def smem_bytes(self, hd: int, dtype=torch.bfloat16) -> int:
         """Dynamic shared memory of one block, as the C++ launches it.
@@ -63,14 +68,19 @@ class FlashConfig:
         return 1024 + 2 * hd * (self.bq + 2 * RING_STAGES * self.bk) + 256
 
 
-# Every (config, head dim) pair is instantiated in csrc/flash_attention.cu.
 CONFIGS: Tuple[FlashConfig, ...] = (
     FlashConfig(64, 64),
     FlashConfig(128, 128),
 )
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 SMEM_BUDGET = 232448  # 227 KB: what one H100 block can use
 RING_STAGES = 2       # K/V stages of the bf16 kernel's ring
+# The (config, head dim) pairs csrc/flash_attention.cu instantiates, in
+# both types: each pair whose tiles fit the budget in both.
+INSTANCES: Tuple[Tuple[FlashConfig, int], ...] = tuple(
+    (c, hd) for c in CONFIGS for hd in HEAD_DIMS
+    if max(c.smem_bytes(hd, dt) for dt in (torch.float32, torch.bfloat16))
+    <= SMEM_BUDGET)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The ``path`` argument of the C entry: the bf16 kernel's two ways of
 # filling its shared-memory tiles; float32 has one kernel, FFMA, which
@@ -121,9 +131,13 @@ def _tma_ok(ptrs, strides) -> bool:
 
 def select_config(Sq: int, Skv: int, hd: int,
                   dtype=torch.bfloat16) -> FlashConfig:
-    """The largest feasible config whose tiles divide both lengths, else
-    the smallest feasible one (the kernel masks ragged tails)."""
-    feasible = [c for c in CONFIGS if c.smem_bytes(hd, dtype) <= SMEM_BUDGET]
+    """The largest config instantiated at ``hd`` (INSTANCES, which holds
+    each pair in both types, so ``dtype`` does not change the pick) whose
+    tiles divide both lengths, else the smallest one (the kernel masks
+    ragged tails)."""
+    feasible = [c for c, h in INSTANCES if h == hd]
+    if not feasible:
+        raise ValueError(f"select_config: no flash instance at hd={hd}")
     for c in sorted(feasible, key=lambda c: -(c.bq * c.bk)):
         if Sq % c.bq == 0 and Skv % c.bk == 0:
             return c
@@ -220,9 +234,9 @@ def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"flash_attention_kernel: dtypes must agree and be "
                         f"one of {list(DTYPES)}")
-    if config not in CONFIGS or hd not in HEAD_DIMS:
+    if (config, hd) not in INSTANCES:
         raise ValueError(f"flash_attention_kernel: {config} at hd={hd} is not "
-                         f"instantiated (CONFIGS x HEAD_DIMS={HEAD_DIMS})")
+                         f"instantiated (INSTANCES)")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_kernel: window={window} must be "
                          f"positive or None")
@@ -255,7 +269,10 @@ def _launch(q, k, v, config, causal, window, q_offset):
              torch._C._cuda_getCurrentRawStream(q.get_device()))
     build.check(err, lib, "flash_attention")
     flash_attention_kernel.launches += 1
+    by_hd = flash_attention_kernel.launches_by_hd
+    by_hd[hd] = by_hd.get(hd, 0) + 1
     return o
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_by_hd = {}   # the same launches by head dim

@@ -11,8 +11,9 @@ KV caches are head-major, (B, Hkv, W, hd) a layer, where the JAX package
 keeps (B, W, Hkv, hd): each (batch, KV head) pair is then one contiguous
 (W, hd) matrix, so the decode step's two products are batched GEMMs over
 B·Hkv that read the cache in place, with no copy and no repeat of KV heads.
-Cross attention and the sliding-window ring buffer come with their model
-kinds.
+A sliding-window layer's cache is a ring of min(window, capacity) slots
+(``init_kv_cache(window=)``, ``ring_slots``).  Cross attention comes with
+its model kind.
 """
 from __future__ import annotations
 
@@ -93,19 +94,23 @@ class Attention(nn.Module):
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
         return self.wo(o.reshape(B, S, -1), compute_dtype), (k, v)
 
-    def decode(self, x, k_cache, v_cache, pos, slot_positions, *,
-               compute_dtype=None, rope):
+    def decode(self, x, k_cache, v_cache, pos, slot, slot_positions, *,
+               window=None, compute_dtype=None, rope):
         """One token a sequence (the self-attention branch of the JAX
         package's ``attn_decode``).  x (B, 1, d); caches (B, Hkv, W, hd),
-        written in place at slot ``pos``, a one-element int64 tensor on the
-        cache's device, so that a captured CUDA graph reads it at replay:
-        nothing here reads it on the host.  ``rope``: ``rope_tables`` at
-        ``pos``.  Returns (B, 1, d)."""
+        written in place at ``slot`` (``pos`` for a full cache, a ring's
+        from ``ring_slots``); ``pos`` and ``slot`` are one-element int64
+        tensors on the cache's device, so that a captured CUDA graph reads
+        them at replay: nothing here reads them on the host.
+        ``slot_positions`` (W,): each slot's position; ``window`` masks
+        positions <= pos - window.  ``rope``: ``rope_tables`` at ``pos``.
+        Returns (B, 1, d)."""
         B = x.shape[0]
         q, k, v = self._project(x, compute_dtype, rope)
-        k_cache.index_copy_(2, pos, k.to(k_cache.dtype).transpose(1, 2))
-        v_cache.index_copy_(2, pos, v.to(v_cache.dtype).transpose(1, 2))
-        o = decode_attention(q, k_cache, v_cache, slot_positions, pos)
+        k_cache.index_copy_(2, slot, k.to(k_cache.dtype).transpose(1, 2))
+        v_cache.index_copy_(2, slot, v.to(v_cache.dtype).transpose(1, 2))
+        o = decode_attention(q, k_cache, v_cache, slot_positions, pos,
+                             window=window)
         return self.wo(o.reshape(B, 1, -1), compute_dtype)
 
 
@@ -147,11 +152,37 @@ def decode_attention(q, k_cache, v_cache, slot_positions, pos, window=None):
     return o.reshape(B, 1, Hq, hd).to(q.dtype)
 
 
-def init_kv_cache(cfg, batch: int, seq_len: int, *, dtype=torch.bfloat16,
-                  device=None):
-    """Zeroed (k, v) caches of one layer, each (B, Hkv, seq_len, hd).  The
-    JAX package's ``window`` (a ring buffer of min(window, seq_len) slots)
-    comes with the sliding-window models."""
-    shape = (batch, cfg.n_kv_heads, seq_len, cfg.head_dim)
+def ring_slots(pos, W: int):
+    """A ring of W slots at position ``pos`` (a one-element int64 tensor):
+    (the slot the token at ``pos`` is written to, pos mod W; each slot's
+    position, pos - ((pos - j) mod W), negative for a slot not written
+    yet), both computed on ``pos``'s device (the JAX package's
+    ``attn_decode`` with a window)."""
+    j = torch.arange(W, device=pos.device)
+    return torch.remainder(pos, W), pos - torch.remainder(pos - j, W)
+
+
+def seed_kv_cache(k, v, W: int):
+    """k, v (B, S, Hkv, hd) post-RoPE -> head-major (k, v) caches of W
+    slots, (B, Hkv, W, hd), holding the last min(W, S) positions, each at
+    slot position mod W, zeros elsewhere: a full cache (W >= S, the prompt
+    at slots 0..S-1) or a ring (the JAX package's ``_seed_cache``)."""
+    B, S, Hkv, hd = k.shape
+    n = min(W, S)
+    slots = torch.arange(S - n, S, device=k.device) % W
+    out = []
+    for t in (k, v):
+        c = torch.zeros((B, Hkv, W, hd), dtype=t.dtype, device=t.device)
+        c[:, :, slots] = t[:, S - n:].transpose(1, 2)
+        out.append(c)
+    return tuple(out)
+
+
+def init_kv_cache(cfg, batch: int, seq_len: int, *, window=None,
+                  dtype=torch.bfloat16, device=None):
+    """Zeroed (k, v) caches of one layer, each (B, Hkv, W, hd): W =
+    seq_len, or with a ``window`` a ring of min(window, seq_len) slots."""
+    W = seq_len if window is None else min(window, seq_len)
+    shape = (batch, cfg.n_kv_heads, W, cfg.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

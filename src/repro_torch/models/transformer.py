@@ -1,12 +1,15 @@
-"""Decoder stack: the dense ``ATTN`` model in the JAX package's three
-modes, ``forward`` over a full sequence, ``prefill`` (forward, KV caches
-and last-token logits) and ``decode_step`` (one token against the caches).
+"""Decoder stack: the dense ``ATTN`` models and the hybrid ones
+(``RGLRU`` and sliding-window ``LOCAL_ATTN`` blocks, recurrentgemma-2b) in
+the JAX package's three modes, ``forward`` over a full sequence,
+``prefill`` (forward, decode caches and last-token logits) and
+``decode_step`` (one token against the caches).
 
 The JAX package stacks per-period parameters and runs them under
 ``lax.scan``; PyTorch runs eagerly, so here the layers are a plain
 ``ModuleList`` walked by a Python loop (layer ``i`` is the JAX package's
-period ``i // len(block_pattern)``, sub-block ``i % len(block_pattern)``).
-Other block kinds, MoE and encoders raise ``NotImplementedError``.
+period ``i // len(block_pattern)``, sub-block ``i % len(block_pattern)``,
+of kind ``cfg.layer_kinds[i]``).  Other block kinds, MoE and encoders
+raise ``NotImplementedError``.
 
 ``decode_step`` updates its ``KVCache`` in place (the JAX step returns a
 new cache; XLA donates the old one's buffers) and reads the position from
@@ -16,7 +19,7 @@ replayed (``serving/engine.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -24,16 +27,16 @@ from torch import nn
 from repro_torch.configs import base as C
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
-_LATER = {C.LOCAL_ATTN: "the sliding-window and hybrid models",
-          C.CROSS_ATTN: "the vision model", C.ENC_ATTN: "the audio model",
-          C.RGLRU: "the recurrent models", C.MLSTM: "the recurrent models",
-          C.SLSTM: "the recurrent models"}
+PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU)
+_LATER = {C.CROSS_ATTN: "the vision model", C.ENC_ATTN: "the audio model",
+          C.MLSTM: "the xLSTM model", C.SLSTM: "the xLSTM model"}
 
 
 def check_supported(cfg: C.ModelConfig):
     for kind in set(cfg.layer_kinds):
-        if kind != C.ATTN:
+        if kind not in PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} blocks are ported with the slice for "
                 f"{_LATER.get(kind, 'their model kind')}")
@@ -46,12 +49,19 @@ def check_supported(cfg: C.ModelConfig):
 
 
 class Block(nn.Module):
-    """Pre-norm attention + (optional) gated MLP, each with a residual."""
+    """Pre-norm mixer, global or sliding-window attention (``attn``) or the
+    RG-LRU block (``rec``), then the (optional) gated MLP, each with a
+    residual (the JAX package's ``apply_block`` for these kinds)."""
 
-    def __init__(self, cfg: C.ModelConfig, *, device=None):
+    def __init__(self, cfg: C.ModelConfig, kind: str, *, device=None):
         super().__init__()
+        self.kind = kind
+        self.window = cfg.sliding_window if kind == C.LOCAL_ATTN else None
         self.ln1 = L.RMSNorm(cfg.d_model, device=device)
-        self.attn = A.Attention(cfg, device=device)
+        if kind == C.RGLRU:
+            self.rec = R.RGLRUBlock(cfg, device=device)
+        else:
+            self.attn = A.Attention(cfg, device=device)
         if cfg.d_ff > 0:
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, device=device)
@@ -59,24 +69,32 @@ class Block(nn.Module):
             self.ln2 = self.mlp = None
 
     def reset(self, gen: torch.Generator):
-        self.attn.reset(gen)
+        (self.rec if self.kind == C.RGLRU else self.attn).reset(gen)
         if self.mlp is not None:
             self.mlp.reset(gen)
 
     def forward(self, x, cfg: C.ModelConfig, cdt, rope=None):
-        """Returns (x, (k, v)), the attention's post-RoPE k and v for the
-        cache."""
-        y, kv = self.attn(self.ln1(x, cfg.norm_eps), causal=True,
-                          compute_dtype=cdt, rope=rope)
-        return self._ffn(x + y, cfg, cdt), kv
+        """Returns (x, state): the attention's post-RoPE (k, v), or the
+        RG-LRU's (h, conv) after the sequence, for the decode cache."""
+        h = self.ln1(x, cfg.norm_eps)
+        if self.kind == C.RGLRU:
+            y, state = self.rec(h, cdt)
+        else:
+            y, state = self.attn(h, causal=True, window=self.window,
+                                 compute_dtype=cdt, rope=rope)
+        return self._ffn(x + y, cfg, cdt), state
 
-    def decode(self, x, k_cache, v_cache, pos, slot_positions,
-               cfg: C.ModelConfig, cdt, rope):
-        """One token (the ATTN branch of ``apply_block_decode``)."""
-        x = x + self.attn.decode(self.ln1(x, cfg.norm_eps), k_cache, v_cache,
-                                 pos, slot_positions, compute_dtype=cdt,
-                                 rope=rope)
-        return self._ffn(x, cfg, cdt)
+    def decode(self, x, state, pos, slots, cfg: C.ModelConfig, cdt, rope):
+        """One token (``apply_block_decode``).  ``state``: this layer's
+        (k, v) caches or (h, conv); ``slots``: (write slot, slot positions)
+        of an attention layer's cache."""
+        h = self.ln1(x, cfg.norm_eps)
+        if self.kind == C.RGLRU:
+            y = self.rec.step(h, *state, cdt)
+        else:
+            y = self.attn.decode(h, *state, pos, *slots, window=self.window,
+                                 compute_dtype=cdt, rope=rope)
+        return self._ffn(x + y, cfg, cdt)
 
     def _ffn(self, x, cfg: C.ModelConfig, cdt):
         if self.mlp is not None:
@@ -86,35 +104,49 @@ class Block(nn.Module):
 
 @dataclasses.dataclass
 class KVCache:
-    """Decode state of the whole stack: per layer a K and a V tensor
-    (B, Hkv, W, hd), and ``pos``, the slot the next token is written to, as
-    a one-element int64 tensor on the caches' device."""
-    k: List[torch.Tensor]
-    v: List[torch.Tensor]
+    """Decode state of the whole stack, per layer: an attention layer's K
+    and V (B, Hkv, W, hd), W = ``capacity`` for global attention and a
+    ring of min(window, capacity) slots for sliding-window attention; an
+    RG-LRU layer's h (B, dl) f32 and conv window (B, width - 1, dl).  The
+    lists hold None where a layer has no such tensor.  ``pos``, the
+    position of the next token, is a one-element int64 tensor on the
+    caches' device; ``capacity``, the positions a decode may reach, is
+    fixed when the cache is made."""
+    k: List[Optional[torch.Tensor]]
+    v: List[Optional[torch.Tensor]]
+    h: List[Optional[torch.Tensor]]
+    conv: List[Optional[torch.Tensor]]
     pos: torch.Tensor
+    capacity: int
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every state tensor, ``pos`` last."""
+        return [t for t in self.k + self.v + self.h + self.conv
+                if t is not None] + [self.pos]
+
+    def layer(self, i: int):
+        """Layer ``i``'s state: (k, v), or (h, conv) for an RG-LRU layer."""
+        return (self.k[i], self.v[i]) if self.h[i] is None else \
+            (self.h[i], self.conv[i])
 
     @property
     def batch(self) -> int:
-        return self.k[0].shape[0]
-
-    @property
-    def capacity(self) -> int:
-        return self.k[0].shape[2]
+        return self.tensors()[0].shape[0]
 
     @property
     def nbytes(self) -> int:
-        return sum(t.nbytes for t in self.k + self.v)
+        return sum(t.nbytes for t in self.tensors()[:-1])
 
     def copy_(self, other: "KVCache") -> "KVCache":
         """Take ``other``'s contents into these tensors (same shapes)."""
-        for dst, src in zip(self.k + self.v + [self.pos],
-                            other.k + other.v + [other.pos]):
+        for dst, src in zip(self.tensors(), other.tensors()):
             dst.copy_(src)
         return self
 
     def clone(self) -> "KVCache":
-        return KVCache([t.clone() for t in self.k],
-                       [t.clone() for t in self.v], self.pos.clone())
+        c = lambda ts: [None if t is None else t.clone() for t in ts]
+        return KVCache(c(self.k), c(self.v), c(self.h), c(self.conv),
+                       self.pos.clone(), self.capacity)
 
 
 class Transformer(nn.Module):
@@ -134,8 +166,8 @@ class Transformer(nn.Module):
             self.unembed = L.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         else:
             self.unembed = None
-        self.blocks = nn.ModuleList(Block(cfg, device=device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, device=device)
+                                    for kind in cfg.layer_kinds)
 
     def reset(self, gen: torch.Generator):
         """Random weights in the JAX package's distributions (normal /
@@ -148,10 +180,13 @@ class Transformer(nn.Module):
 
     def cast_weights_(self, dtype: torch.dtype) -> "Transformer":
         """Store matmul and embedding weights (and biases) in ``dtype`` once,
-        in place, instead of casting them on every call; norm scales stay
-        f32.  The values are those the per-call cast produces."""
+        in place, instead of casting them on every call; norm scales, the
+        RG-LRU's conv taps and Λ, and the weights its gates use in f32
+        (``keep_f32``) stay f32.  The values are those the per-call cast
+        produces."""
         for mod in self.modules():
-            if isinstance(mod, (L.Linear, L.Embedding)):
+            if (isinstance(mod, (L.Linear, L.Embedding))
+                    and not getattr(mod, "keep_f32", False)):
                 for p in mod.parameters(recurse=False):
                     p.data = p.data.to(dtype)
         return self
@@ -162,8 +197,8 @@ class Transformer(nn.Module):
 
     def make_ctx(self, batch: int):
         """The stub modality context of the JAX package's ``Model.make_ctx``:
-        None, since every model the port builds is ATTN-only
-        (``check_supported``)."""
+        None, since no model the port builds has cross attention or an
+        encoder (``check_supported``)."""
         return None
 
     def _head(self):
@@ -189,62 +224,86 @@ class Transformer(nn.Module):
         x = self.final_norm(x, cfg.norm_eps)
         return self._head().unembed(x, cdt)
 
+    def _ring(self, capacity: int) -> int:
+        """Slots of a sliding-window layer's ring at decode capacity
+        ``capacity``."""
+        return min(self.cfg.sliding_window, capacity)
+
     def prefill(self, tokens: torch.Tensor, *, max_len: int = None):
-        """tokens (B, S) -> (last-token logits (B, Vp), KVCache).  The caches
-        hold the prompt's post-RoPE K/V in the compute dtype, zero-padded to
-        the decode capacity ``max_len`` (default S + 64; never below S), and
-        ``pos`` = S.  Only the last position is normed and unembedded.  No
-        context embedding: the port builds ATTN-only models."""
+        """tokens (B, S) -> (last-token logits (B, Vp), KVCache) of capacity
+        ``max_len`` (default S + 64; never below S), ``pos`` = S.  Global
+        attention layers hold the prompt's post-RoPE K/V in the compute
+        dtype, zero-padded to the capacity; sliding-window layers the last
+        min(W, S) positions of their ring of W = min(window, capacity)
+        slots, each at slot position mod W (``_seed_cache``); RG-LRU layers
+        their state after the prompt.  Only the last position is normed and
+        unembedded.  No context embedding: the port builds no model with
+        cross attention or an encoder."""
         self._no_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         B, S = tokens.shape
-        W = max(max_len or S + 64, S)
+        cap = max(max_len or S + 64, S)
+        dev = tokens.device
         x = self.embed(tokens, cdt)
-        positions = torch.arange(S, device=tokens.device)[None, :]
+        positions = torch.arange(S, device=dev)[None, :]
         rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        ks, vs = [], []
-        for blk in self.blocks:
-            x, (k, v) = blk(x, cfg, cdt, rope)
-            kc, vc = A.init_kv_cache(cfg, B, W, dtype=k.dtype,
-                                     device=tokens.device)
-            kc[:, :, :S] = k.transpose(1, 2)
-            vc[:, :, :S] = v.transpose(1, 2)
-            ks.append(kc)
-            vs.append(vc)
+        n_layers = len(self.blocks)
+        ks, vs, hs, convs = ([None] * n_layers for _ in range(4))
+        for i, blk in enumerate(self.blocks):
+            x, state = blk(x, cfg, cdt, rope)
+            if blk.kind == C.RGLRU:
+                hs[i], convs[i] = state
+                continue
+            W = cap if blk.window is None else self._ring(cap)
+            ks[i], vs[i] = A.seed_kv_cache(*state, W)
         x = self.final_norm(x[:, -1:], cfg.norm_eps)
         logits = self._head().unembed(x, cdt)[:, 0]
-        pos = torch.full((1,), S, dtype=torch.int64, device=tokens.device)
-        return logits, KVCache(ks, vs, pos)
+        pos = torch.full((1,), S, dtype=torch.int64, device=dev)
+        return logits, KVCache(ks, vs, hs, convs, pos, cap)
 
     def decode_step(self, token: torch.Tensor, cache: KVCache):
         """token (B,) int -> (logits (B, Vp), cache): writes the token's K/V
-        at slot ``cache.pos`` of every layer, attends over all W slots (those
-        past ``pos`` masked), and advances ``pos``, all in place and on the
-        device (no host read of ``pos``: the step is graph-capturable).  The
-        caller keeps ``pos`` < W."""
+        at slot ``pos`` of every global attention layer (attending over all
+        its slots, those past ``pos`` masked) and at slot ``pos`` mod W of
+        every ring (``A.ring_slots``), advances every RG-LRU state and
+        ``pos``, all in place and on the device (no host read of ``pos``:
+        the step is graph-capturable).  The caller keeps ``pos`` below the
+        capacity."""
         self._no_grad_on_card(token)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         pos = cache.pos
         x = self.embed(token[:, None], cdt)
         rope = A.rope_tables(pos.view(1, 1), cfg.head_dim, cfg.rope_theta)
-        slots = torch.arange(cache.capacity, device=pos.device)
-        for blk, kc, vc in zip(self.blocks, cache.k, cache.v):
-            x = blk.decode(x, kc, vc, pos, slots, cfg, cdt, rope)
+        full = (pos, torch.arange(cache.capacity, device=pos.device))
+        ring = A.ring_slots(pos, self._ring(cache.capacity)) \
+            if C.LOCAL_ATTN in cfg.layer_kinds else None
+        for i, blk in enumerate(self.blocks):
+            slots = full if blk.window is None else ring
+            x = blk.decode(x, cache.layer(i), pos, slots, cfg, cdt, rope)
         pos.add_(1)
         x = self.final_norm(x, cfg.norm_eps)
         return self._head().unembed(x, cdt)[:, 0], cache
 
     def init_cache(self, batch: int, seq_len: int, *, pos: int = None,
                    dtype=torch.bfloat16) -> KVCache:
-        """Zeroed caches of capacity ``seq_len`` on the model's device,
-        positioned at ``pos`` (default seq_len - 1: 'a KV cache of
-        seq_len')."""
+        """Zeroed caches of capacity ``seq_len`` on the model's device
+        (``init_layer_cache``: rings of min(window, seq_len) slots, RG-LRU
+        states with h in f32), positioned at ``pos`` (default seq_len - 1:
+        'a KV cache of seq_len')."""
         dev = self.embed.w.device
-        ks, vs = zip(*(A.init_kv_cache(self.cfg, batch, seq_len, dtype=dtype,
-                                       device=dev)
-                       for _ in range(self.cfg.n_layers)))
+        n_layers = len(self.blocks)
+        ks, vs, hs, convs = ([None] * n_layers for _ in range(4))
+        for i, blk in enumerate(self.blocks):
+            if blk.kind == C.RGLRU:
+                hs[i], convs[i] = R.init_rglru_cache(self.cfg, batch,
+                                                     dtype=dtype, device=dev)
+            else:
+                ks[i], vs[i] = A.init_kv_cache(
+                    self.cfg, batch, seq_len, window=blk.window, dtype=dtype,
+                    device=dev)
         p = seq_len - 1 if pos is None else pos
-        return KVCache(list(ks), list(vs),
-                       torch.full((1,), p, dtype=torch.int64, device=dev))
+        return KVCache(ks, vs, hs, convs,
+                       torch.full((1,), p, dtype=torch.int64, device=dev),
+                       seq_len)

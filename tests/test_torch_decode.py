@@ -1,6 +1,8 @@
 """The port's decode path against the JAX package's, on the same weights
 (``convert.from_jax_params``) and the same numpy inputs from a seed, at
-``reduced("qwen2-0.5b", n_layers=2)`` and ``qwen3-mini``.
+``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini`` and the hybrid
+``reduced("recurrentgemma-2b", n_layers=5)`` (RG-LRU and sliding-window
+layers; its ring wraps in ``tests/test_torch_recurrent.py``).
 
 Tolerances:
 - ``decode_attention``, f32: atol 2e-5 (``tests/test_attention.py``).
@@ -42,7 +44,9 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
-         "qwen3-mini": lambda m: m.get_any("qwen3-mini")}
+         "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
+         "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
+                                                          n_layers=5)}
 NAMES = list(jcr.ARCH_NAMES) + list(jcr.PAPER_MODELS)
 CTXS = (1, 512, 4096)
 
@@ -138,7 +142,8 @@ def test_prefill_and_two_decode_steps_match_jax(name):
     assert fk.flash_attention_kernel.launches == 0      # CPU: plain version
     assert lg.shape == (B, tL.pad_vocab(jcfg.vocab_size))
     assert cache.capacity == S + 64 and int(cache.pos) == S
-    assert cache.k[0].dtype == torch.float32            # the compute dtype
+    assert all(k.dtype == torch.float32                 # the compute dtype
+               for k in cache.k if k is not None)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=1e-4,
                                rtol=1e-4)
     for t in range(2):
@@ -152,20 +157,38 @@ def test_prefill_and_two_decode_steps_match_jax(name):
     assert int(cache.pos) == int(jcache["pos"]) == S + 2
 
 
+def _jax_layer_cache(jcfg, jcache, i):
+    """Layer ``i``'s entry of a JAX cache (a period of ``scan/sub<j>`` or
+    a ``rem<r>``)."""
+    period = len(jcfg.block_pattern)
+    n_scan = jcfg.n_layers // period * period
+    if i < n_scan:
+        sub = jcache["layers"]["scan"][f"sub{i % period}"]
+        return jax.tree.map(lambda x: np.asarray(x)[i // period], sub)
+    return jax.tree.map(np.asarray, jcache["layers"][f"rem{i - n_scan}"])
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_prefill_seeds_the_jax_cache(name):
     """The seeded caches hold the JAX package's post-RoPE K/V (head-major),
-    zeros past the prompt, at the capacity asked for."""
+    zeros past the prompt, at the capacity asked for; an RG-LRU layer its
+    (h, conv) state."""
     jcfg, jmodel, jparams, tcfg, model = _both(name)
     tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 9))
     _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), max_len=16)
     with torch.no_grad():
         _, cache = model.prefill(torch.from_numpy(tokens), max_len=16)
-    jk = np.asarray(jcache["layers"]["scan"]["sub0"]["self"]["k"])  # (L,B,W,H,hd)
-    assert cache.capacity == jk.shape[2] == 16
+    assert cache.capacity == 16
     for i in range(tcfg.n_layers):
-        np.testing.assert_allclose(cache.k[i].transpose(1, 2).numpy(), jk[i],
-                                   atol=1e-4, rtol=1e-4)
+        jl = _jax_layer_cache(jcfg, jcache, i)
+        if "rec" in jl:
+            for got, key in ((cache.h[i], "h"), (cache.conv[i], "conv")):
+                np.testing.assert_allclose(got.numpy(), jl["rec"][key],
+                                           atol=1e-4, rtol=1e-4)
+            continue
+        assert cache.k[i].shape[2] == jl["self"]["k"].shape[1] == 16
+        np.testing.assert_allclose(cache.k[i].transpose(1, 2).numpy(),
+                                   jl["self"]["k"], atol=1e-4, rtol=1e-4)
         assert not cache.k[i][:, :, 9:].any() and not cache.v[i][:, :, 9:].any()
 
 

@@ -45,10 +45,12 @@ def _t(x, dtype=torch.float32):
 def zero_counters():
     mk.matmul_kernel.launches = 0
     fk.flash_attention_kernel.launches = 0
+    fk.flash_attention_kernel.launches_by_hd.clear()
     yield
     # CPU tensors never launch a kernel
     assert mk.matmul_kernel.launches == 0
     assert fk.flash_attention_kernel.launches == 0
+    assert fk.flash_attention_kernel.launches_by_hd == {}
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +172,32 @@ def test_flash_plain_window_matches_pallas(hd):
     np.testing.assert_allclose(port.numpy(), _np(pallas), atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_plain_hd256_matches_pallas(window):
+    """The hd-256 instance's function (fa_64x64, the only config whose
+    tiles fit there) against the Pallas kernel in interpret mode, with and
+    without the sliding window."""
+    q, k, v = _qkv(2, 192, 256, seed=4)
+    cfg = fk.FlashConfig(64, 64)
+    assert (cfg, 256) in fk.INSTANCES and fk.select_config(192, 192, 256) == cfg
+    pallas = jfk.flash_attention_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jfk.FlashConfig(64, 64),
+        causal=True, window=window, interpret=True)
+    port = fk.flash_attention_kernel(_t(q), _t(k), _t(v), cfg, causal=True,
+                                     window=window)
+    np.testing.assert_allclose(port.numpy(), _np(pallas), atol=2e-5)
+    with pytest.raises(ValueError):        # fa_128x128 has no hd-256 instance
+        fk.flash_attention_kernel(_t(q), _t(k), _t(v), fk.FlashConfig(128, 128))
+
+
+def test_flash_threads_per_instance():
+    """2 bq threads a block, but 4 bq for float32 at hd 256 (4 query rows
+    a thread instead of 8)."""
+    for c, hd in fk.INSTANCES:
+        assert c.threads(hd, torch.bfloat16) == 2 * c.bq
+        assert c.threads(hd, torch.float32) == (4 if hd == 256 else 2) * c.bq
+
+
 def test_flash_plain_bf16_matches_pallas():
     """bf16 inputs: both sides compute in f32 and round once to bf16, so
     they differ by at most one bf16 ulp (2^-7 relative)."""
@@ -285,8 +313,11 @@ def test_cuda_instances_equal_configs_times_head_dims(dtype):
     assert sorted(t[:3] for t in mm) == sorted(
         (c.bm, c.bk, c.bn) for c in mk.CONFIGS)
     fa = _instances("flash_attention", f"PM2LAT_FA_{dtype}")
-    assert sorted(fa) == sorted((c.bq, c.bk, hd) for c in fk.CONFIGS
-                                for hd in fk.HEAD_DIMS)
+    assert sorted(fa) == sorted((c.bq, c.bk, hd) for c, hd in fk.INSTANCES)
+    # every config up to hd 128; at hd 256 the one whose tiles fit
+    assert [(c.name, hd) for c, hd in fk.INSTANCES if hd == 256] == [
+        ("fa_64x64", 256)]
+    assert len(fk.INSTANCES) == len(fk.CONFIGS) * (len(fk.HEAD_DIMS) - 1) + 1
     # the shared-memory getters answer for the same instances
     assert sorted(t[:3] for t in _instances("matmul", "PM2LAT_MM_SMEM")) == \
         sorted(t[:3] for t in mm)
@@ -297,9 +328,8 @@ def test_cuda_instances_equal_configs_times_head_dims(dtype):
 def test_every_instance_fits_the_shared_memory_budget(dtype):
     for c in mk.CONFIGS:
         assert 0 < c.smem_bytes(dtype) <= mk.SMEM_BUDGET
-    for c in fk.CONFIGS:
-        for hd in fk.HEAD_DIMS:
-            assert 0 < c.smem_bytes(hd, dtype) <= fk.SMEM_BUDGET
+    for c, hd in fk.INSTANCES:
+        assert 0 < c.smem_bytes(hd, dtype) <= fk.SMEM_BUDGET
 
 
 def test_bf16_matmul_ring_is_at_least_double_buffered():
@@ -406,6 +436,8 @@ F32_FA_SMEM = {("fa_64x64", 16): 4 * (64 * 16 + 64 * 20 + 64 * 16 + 64 * 68),
                ("fa_64x64", 64): 4 * (64 * 64 + 64 * 68 + 64 * 64 + 64 * 68),
                ("fa_64x64", 128): 4 * (64 * 128 + 64 * 132 + 64 * 128
                                        + 64 * 68),
+               ("fa_64x64", 256): 4 * (64 * 256 + 64 * 260 + 64 * 256
+                                       + 64 * 68),
                ("fa_128x128", 16): 4 * (128 * 16 + 128 * 20 + 128 * 16
                                         + 128 * 132),
                ("fa_128x128", 32): 4 * (128 * 32 + 128 * 36 + 128 * 32
@@ -426,8 +458,7 @@ def test_float32_matmul_smem_is_the_ring_layout(cfg):
     assert got - 4 * 2 * 4 * cfg.bm == 4 * 2 * sk * (cfg.bm + cfg.bn)
 
 
-@pytest.mark.parametrize("cfg,hd", [(c, hd) for c in fk.CONFIGS
-                                    for hd in fk.HEAD_DIMS],
+@pytest.mark.parametrize("cfg,hd", list(fk.INSTANCES),
                          ids=lambda x: getattr(x, "name", str(x)))
 def test_float32_flash_smem_is_the_tile_layout(cfg, hd):
     assert cfg.smem_bytes(hd, torch.float32) == F32_FA_SMEM[(cfg.name, hd)] \
@@ -440,9 +471,10 @@ def test_float32_flash_smem_is_the_tile_layout(cfg, hd):
 def test_float32_flash_holds_eight_warps_an_sm(cfg, hd):
     """At the most registers a thread may have (255), every float32 flash
     instance at hd <= 64 keeps 8 warps or more resident on an SM."""
-    blocks = build.blocks_per_sm(cfg.threads, 255,
+    threads = cfg.threads(hd, torch.float32)
+    blocks = build.blocks_per_sm(threads, 255,
                                  cfg.smem_bytes(hd, torch.float32))
-    assert blocks * cfg.threads // 32 >= 8
+    assert blocks * threads // 32 >= 8
 
 
 @pytest.mark.parametrize("threads,regs,smem,want", [

@@ -27,7 +27,9 @@ from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import registry as tmr  # noqa: E402
 
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
-         "qwen3-mini": lambda m: m.get_any("qwen3-mini")}
+         "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
+         "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
+                                                          n_layers=5)}
 
 
 def _f32(cfg):
@@ -110,8 +112,7 @@ def test_bf16_weights_cast_once_match_per_call_cast():
 
 
 def test_unported_block_kinds_raise():
-    for name in ("xlstm-1.3b", "recurrentgemma-2b", "whisper-small",
-                 "moonshot-v1-16b-a3b"):
+    for name in ("xlstm-1.3b", "whisper-small", "moonshot-v1-16b-a3b"):
         with pytest.raises(NotImplementedError):
             tmr.build(tcr.reduced(name), device="cpu")
 

@@ -1,7 +1,8 @@
 """The port's serving engine and ``serve`` launcher on the CPU, against
 repeated forward passes and against the JAX package's engine on the same
 weights (``convert.from_jax_params``) and the same numpy prompts, at
-``reduced("qwen2-0.5b", n_layers=2)`` and ``qwen3-mini`` in f32.
+``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini`` and the hybrid
+``reduced("recurrentgemma-2b", n_layers=5)`` in f32.
 
 Tolerances: none.  Greedy tokens are argmaxes, compared for equality;
 stats are counts and orderings of host times.  On the CPU the decode step
@@ -29,7 +30,9 @@ from repro_torch.serving.engine import (EngineStats, Request,  # noqa: E402
                                         ServingEngine)
 
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
-         "qwen3-mini": lambda m: m.get_any("qwen3-mini")}
+         "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
+         "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
+                                                          n_layers=5)}
 
 
 def _f32(cfg):
