@@ -30,7 +30,14 @@ full width (RG-LRU blocks and sliding-window attention through the flash
 kernel's hd-256 instances), float32 and bf16, its forward measured and
 predicted, decode steps over a wrapped ring buffer held against the
 forward (with a planted ring fault that must fail), and the ``serve``
-launcher's engine.  Every phase prints one JSON line; the full
+launcher's engine.  Then the encoder–decoder path: whisper-small at full
+width (12 encoder and 12 decoder layers over 1,500 stub frames: non-causal
+and cross attention through the flash kernel), float32 and bf16, its
+forward measured, split and predicted, its encoder on the card held
+against the CPU's (with a causal encoder planted, which must fail), decode
+steps held against the forward (with cross caches from a foreign context
+planted, which must fail), and the ``serve`` launcher's engine.  Every
+phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
 (``chiprun_out/comm_calibration.json``, deleted at the start).
@@ -81,6 +88,7 @@ from repro_torch.kernels import matmul as mk  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.serving.engine import (DecodeGraph, Request,  # noqa: E402
                                         ServingEngine)
 from repro_torch.serving.latency_service import LatencyService  # noqa: E402
@@ -189,6 +197,33 @@ HYBRID_RING_CAPACITY, HYBRID_RING_STEPS = 2200, 32
 HYBRID_STEP_TOL = {"float32": DECODE_TOL["float32"], "bfloat16": 6e-2}
 HYBRID_SERVE_ARGS = ["--arch", HYBRID, "--requests", "8", "--prompt-len",
                      "512", "--max-new", "16", "--max-batch", "4",
+                     "--temperature", "0", "--compute-dtype", "bfloat16",
+                     "--seed", "0"]
+# The encoder–decoder phase: whisper-small at full width (12 encoder and 12
+# decoder layers, d 768, 12 heads of 64, d_ff 3072 GELU, vocab 51,865
+# padded to 51,968, 1,500 stub frames), built from a seed on the card in
+# float32 and then in bf16, one at a time.  Its forward is measured at
+# ENCDEC_FORWARDS over a 1,500-frame context: (8, 448) is batched
+# transcription at Whisper's 448-token decoder context, (1, 64) one short
+# transcript, where the encoder dominates.  The decode check prefills
+# ENCDEC_PROMPT tokens at batch ENCDEC_BATCH and capacity ENCDEC_CAPACITY
+# and takes ENCDEC_STEPS steps, eagerly and as a CUDA graph, the prefill's
+# and every step's logits held against the forward over the whole sequence
+# at DECODE_TOL; the serving engine runs the launcher's ENCDEC_SERVE_ARGS
+# (two waves of 4).
+ENCDEC = "whisper-small"
+ENCDEC_FORWARDS = ((8, 448), (1, 64))
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_CAPACITY, ENCDEC_STEPS = 8, 64, 128, 32
+# The card's encoder at batch 1 in float32 against the same weights and
+# context on the CPU (the plain flash), as max|d| / max|out|: both sides are
+# true f32 (TF32 off) and differ only in the order of f32 sums (cuBLAS's
+# GEMMs and the kernel's tiles against the CPU's GEMMs and the plain
+# version's), as a decode step and a forward do: DECODE_TOL's float32
+# limit.  The planted causal encoder changes what every frame but the last
+# attends to.
+ENCDEC_ENCODER_TOL = DECODE_TOL["float32"]
+ENCDEC_SERVE_ARGS = ["--arch", ENCDEC, "--requests", "8", "--prompt-len",
+                     "64", "--max-new", "32", "--max-batch", "4",
                      "--temperature", "0", "--compute-dtype", "bfloat16",
                      "--seed", "0"]
 
@@ -474,6 +509,27 @@ def hybrid_path_cases():
              c.sliding_window, None) for B, S in shapes]
 
 
+def encdec_path_cases():
+    """The flash calls of the encoder–decoder path (whisper-small: 12
+    heads of 64 over 12 KV heads, 1,500 frames) at each (B, S) the path
+    runs: the measured forwards ENCDEC_FORWARDS (whose (1, 64) batch is
+    the encoder check's), the decode check's prefill and forward, and the
+    serving engine's prefill (``check_served``'s too).  Each is the
+    encoder (B, 1500, 1500) and cross attention (B, S, 1500), non-causal,
+    and the decoder's self-attention (B, S, S), causal."""
+    c = cfg_registry.get(ENCDEC)
+    serve = serve_launcher.parse_args(ENCDEC_SERVE_ARGS)
+    shapes = sorted(set(ENCDEC_FORWARDS) | {
+        (ENCDEC_BATCH, ENCDEC_PROMPT),
+        (ENCDEC_BATCH, ENCDEC_PROMPT + ENCDEC_STEPS),
+        (serve.max_batch, serve.prompt_len)})
+    L, heads = c.encoder.n_frames, (c.n_heads, c.n_kv_heads, c.head_dim)
+    return ([(B, L, L, *heads, False, None, None)
+             for B in sorted({B for B, _ in shapes})]
+            + [(B, S, L, *heads, False, None, None) for B, S in shapes]
+            + [(B, S, S, *heads, True, None, None) for B, S in shapes])
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), every config
@@ -482,8 +538,10 @@ def check_flash(dtypes):
     views (TMA) and tensors 2 bytes off alignment or with an odd row
     stride (the second load path) are added; then the decode and serve
     paths' shapes (``decode_path_cases``), the grid path's
-    (``grid_path_cases``), the schedule path's (``schedule_path_cases``)
-    and the hybrid path's (``hybrid_path_cases``)."""
+    (``grid_path_cases``), the schedule path's (``schedule_path_cases``),
+    the hybrid path's (``hybrid_path_cases``) and the encoder–decoder
+    path's (``encdec_path_cases``: non-causal over 1,500 keys, ragged
+    against both tiles)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -505,7 +563,7 @@ def check_flash(dtypes):
         (1, 77, 77, 2, 2, 256, False, None, None),
         (1, 150, 201, 4, 2, 256, True, None, "offset"),
     ] + decode_path_cases() + grid_path_cases() + schedule_path_cases() \
-        + hybrid_path_cases()
+        + hybrid_path_cases() + encdec_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -724,8 +782,10 @@ def device_rows(prof):
 
 
 # cuBLAS/cuBLASLt GEMM and GEMV kernels (and their split-K reductions)
-# by name, for the share of a trace's busy time that the matmul rows price
+# by name, for the share of a trace's busy time that the matmul rows price;
+# the hand flash kernel's instances by name
 GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma|splitKreduce", re.IGNORECASE)
+FLASH_KERNEL = re.compile(r"fa_wgmma_kernel|fa_fwd_kernel")
 
 
 def forward_trace(fn, *args):
@@ -734,7 +794,8 @@ def forward_trace(fn, *args):
     first to its last kernel (CUDA events); where the two are close, the
     host sets the pace.  Under ``torch.profiler``: the device's busy time,
     the part of it in cuBLAS GEMM/GEMV kernels (``GEMM_KERNEL``), its idle
-    share of that span, and the 10 kernels that take the most time."""
+    share of that span, the part of it in the hand flash kernel
+    (``FLASH_KERNEL``), and the 10 kernels that take the most time."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -755,6 +816,8 @@ def forward_trace(fn, *args):
             "device_busy_ms": busy,
             "gemm_ms": sum(t for name, (_, t) in rows.items()
                            if GEMM_KERNEL.search(name)),
+            "flash_ms": sum(t for name, (_, t) in rows.items()
+                            if FLASH_KERNEL.search(name)),
             "idle_share": (1 - busy / span) if busy else None,
             "kernel_launches": sum(c for c, _ in rows.values()),
             "top10": [[name[:90], c, t] for name, (c, t) in top]}
@@ -762,17 +825,22 @@ def forward_trace(fn, *args):
 
 def hand_launches():
     """Each hand kernel's launches, and the flash kernel's by head dim
-    (``flash_attention@hd<hd>``, as its wrapper counts them)."""
-    by_hd = fk.flash_attention_kernel.launches_by_hd
+    (``flash_attention@hd<hd>``) and by mask (``flash_attention@causal``,
+    ``flash_attention@noncausal``), as its wrapper counts them."""
+    fa = fk.flash_attention_kernel
     return {"matmul": mk.matmul_kernel.launches,
-            "flash_attention": fk.flash_attention_kernel.launches,
-            **{f"flash_attention@hd{hd}": n for hd, n in sorted(by_hd.items())}}
+            "flash_attention": fa.launches,
+            **{f"flash_attention@hd{hd}": n
+               for hd, n in sorted(fa.launches_by_hd.items())},
+            **{f"flash_attention@{'causal' if c else 'noncausal'}": n
+               for c, n in sorted(fa.launches_by_causal.items())}}
 
 
 def reset_launches():
     mk.matmul_kernel.launches = 0
     fk.flash_attention_kernel.launches = 0
     fk.flash_attention_kernel.launches_by_hd.clear()
+    fk.flash_attention_kernel.launches_by_causal.clear()
 
 
 def phase_decode(store):
@@ -969,8 +1037,10 @@ def phase_serve(store):
 def check_served(engine, done, waves=None):
     """What the engine served (its CUDA graphs, reloaded for the second
     wave, and its argmax on the card) against an eager ``prefill`` and
-    ``decode_step`` of each wave's prompts, greedy, on the card: the rids
-    whose tokens differ, and each one's first differing step.  ``waves``
+    ``decode_step`` of each wave's prompts, greedy, on the card, over the
+    wave's context where the model takes one (``make_ctx``, as the engine
+    draws it): the rids whose tokens differ, and each one's first differing
+    step.  ``waves``
     gives the wave sizes the engine seated (default: ``max_batch`` each)."""
     model, vocab = engine.model, engine.model.cfg.vocab_size
     if waves is None:
@@ -985,8 +1055,9 @@ def check_served(engine, done, waves=None):
                 raise AssertionError("check_served needs one prompt length "
                                      "a wave (no left padding)")
             toks = torch.from_numpy(np.stack([r.prompt for r in wave]))
-            logits, cache = model.prefill(toks.long().cuda(),
-                                          max_len=engine.max_len)
+            logits, cache = model.prefill(
+                toks.long().cuda(), ctx_embed=model.make_ctx(len(wave)),
+                max_len=engine.max_len)
             nxt = logits[:, :vocab].argmax(-1)
             out = [nxt]
             for _ in range(wave[0].max_new_tokens - 1):
@@ -2266,6 +2337,290 @@ def hybrid_serve(pm):
     return rec
 
 
+def phase_encdec(store):
+    """whisper-small at full width (12 encoder and 12 decoder layers, d
+    768, 12 heads of 64, vocab 51,865, 1,500 stub frames), float32 then
+    bf16, each built from seed 0 on the card and freed before the next.
+    (b) the forward at ENCDEC_FORWARDS, measured, split and against the
+    store's prediction, 36 flash launches (24 non-causal) each
+    (``encdec_forward``); (c) the float32 encoder on the card against the
+    CPU's, and a causal encoder, which must fail that check
+    (``encdec_encoder``); (d) decode steps against the forward, eager and
+    graph, and a step over a foreign context's cross caches, which must
+    fail (``encdec_decode``); (e) the launcher's bf16 engine over two waves,
+    every token held against eager steps (``encdec_serve``).  The flash
+    kernel is held against its plain version at this path's shapes by
+    ``check_flash`` ((a), ``encdec_path_cases``) and timed at the encoder's
+    and the cross attention's in the ``kernels`` line ((f)).  Fails if a
+    check of (b)-(e) fails."""
+    t0 = time.perf_counter()
+    cfg0 = cfg_registry.get(ENCDEC)
+    pm = PM2Lat(store, store.meta["device"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    forwards, decodes, encoder = [], [], None
+    for dname in DTYPES:
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        model = model_registry.build(cfg, device="cuda", seed=0)
+        if dname != "float32":
+            model.cast_weights_(getattr(torch, dname))
+        with torch.no_grad():
+            if dname == "float32":
+                encoder = encdec_encoder(model)
+            for B, S in ENCDEC_FORWARDS:
+                tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=gen, device="cuda")
+                forwards.append(encdec_forward(model, pm, cfg, tokens))
+            tokens = torch.randint(
+                0, cfg.vocab_size,
+                (ENCDEC_BATCH, ENCDEC_PROMPT + ENCDEC_STEPS), generator=gen,
+                device="cuda")
+            decodes.append(encdec_decode(model, pm, cfg, tokens))
+        del model
+    torch.cuda.empty_cache()
+    served = encdec_serve(pm)
+    torch.cuda.empty_cache()
+    rec = {"forwards": forwards, "encoder": encoder, "decodes": decodes,
+           "serve": served, "seconds": time.perf_counter() - t0}
+    emit("encdec", seconds=rec["seconds"])
+    bad = [f"forward {r['dtype']} {r['batch']}x{r['seq']}: {r['failed']}"
+           for r in forwards if r["failed"]]
+    bad += [f"encoder: {encoder['failed']}"] if encoder["failed"] else []
+    bad += [f"decode {r['dtype']}: {r['failed']}" for r in decodes
+            if r["failed"]]
+    bad += [f"serve: {served['failed']}"] if served["failed"] else []
+    if bad:
+        raise AssertionError(f"encdec: {bad}")
+    return rec
+
+
+def encdec_flash_launches(cfg):
+    """A forward's (or prefill's) flash launches and the non-causal ones:
+    each encoder layer's self-attention and each decoder layer's cross
+    attention are non-causal, each decoder layer's self-attention causal."""
+    noncausal = cfg.encoder.n_layers + cfg.n_layers
+    return noncausal + cfg.n_layers, noncausal
+
+
+def encdec_forward(model, pm, cfg, tokens):
+    """(b) One forward at (B, S) = ``tokens.shape`` over a 1,500-frame
+    context (``make_ctx``): finite logits of the padded vocab, 36 flash
+    launches, 24 of them non-causal (counted by the wrapper's mask flag);
+    its time (CUDA events, ``profiler.measure``), its trace and the
+    encoder's alone (the split: encoder, decoder = the rest, flash, GEMMs,
+    idle), against ``predict_model`` (its encoder segment, ``enc.*`` rows,
+    against the encoder's device time)."""
+    B, S = tokens.shape
+    dname = cfg.compute_dtype
+    ctx = model.make_ctx(B)
+    fa = fk.flash_attention_kernel
+    before = fa.launches, fa.launches_by_causal.get(False, 0)
+    logits = model(tokens, ctx_embed=ctx)
+    torch.cuda.synchronize()
+    flash = fa.launches - before[0]
+    noncausal = fa.launches_by_causal.get(False, 0) - before[1]
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    run = lambda: model(tokens, ctx_embed=ctx)
+    measured = profiler.measure(run)
+    trace = forward_trace(run)
+    enc_trace = forward_trace(model.encode, ctx)
+    total, rows = pm.predict_model(cfg, B, S, dtype=dname)
+    by_kind = {}
+    for r in rows:
+        kind = r.name.split(".")[0]
+        by_kind[kind] = by_kind.get(kind, 0.0) + r.seconds * 1e3
+    want = encdec_flash_launches(cfg)
+    failed = [] if finite else ["logits not finite"]
+    failed += [] if shape == [B, S, model.padded_vocab] else [f"shape {shape}"]
+    failed += [] if (flash, noncausal) == want else [
+        f"{flash} flash launches, {noncausal} non-causal, expected {want}"]
+    split = {"encoder_busy_ms": enc_trace["device_busy_ms"],
+             "decoder_busy_ms": trace["device_busy_ms"]
+             - enc_trace["device_busy_ms"],
+             "flash_ms": trace["flash_ms"], "encoder_flash_ms":
+             enc_trace["flash_ms"], "gemm_ms": trace["gemm_ms"],
+             "idle_share": trace["idle_share"]}
+    rec = {"dtype": dname, "batch": B, "seq": S, "frames": ctx.shape[1],
+           "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder.n_layers,
+           "d_model": cfg.d_model, "logits_shape": shape,
+           "logits_finite": finite, "flash_launches_per_forward": flash,
+           "noncausal_flash_launches": noncausal,
+           "measured_ms": measured * 1e3, "predicted_ms": total * 1e3,
+           "err_pct": 100 * abs(total - measured) / measured,
+           "predicted_ms_by_kind": by_kind, "split": split,
+           "encoder_predicted_ms": by_kind.get("enc", 0.0),
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "device_trace": trace, "encoder_trace": enc_trace,
+           "failed": failed}
+    emit("encdec_forward", **rec)
+    return rec
+
+
+def encdec_encoder(model):
+    """(c) The float32 encoder on the card at batch 1 against the same
+    weights and context on the CPU (the plain flash), as max|d| /
+    max|out| within ENCDEC_ENCODER_TOL; then the card's encoder run causal
+    (each encoder block's ``causal`` set for the call), which must miss
+    it."""
+    ctx = model.make_ctx(1, torch.Generator(device="cuda").manual_seed(6))
+    got = model.encode(ctx).cpu()
+    cpu = Transformer(model.cfg, device=torch.device("cpu"))
+    cpu.load_state_dict(model.state_dict())
+    want = cpu.encode(ctx.cpu())
+    del cpu
+    rel = lambda x: float((x.float() - want).abs().max() / want.abs().max())
+    blocks = model.encoder.blocks
+    for blk in blocks:
+        blk.causal = True
+    try:
+        causal = model.encode(ctx).cpu()
+    finally:
+        for blk in blocks:
+            blk.causal = False
+    err, fault_err = rel(got), rel(causal)
+    checks = {"encoder_ok": err <= ENCDEC_ENCODER_TOL,
+              "planted_fault_caught": fault_err > ENCDEC_ENCODER_TOL}
+    rec = {"dtype": model.cfg.compute_dtype, "batch": 1,
+           "frames": ctx.shape[1], "rel_err": err, "tol": ENCDEC_ENCODER_TOL,
+           "causal_encoder_rel_err": fault_err, "checks": checks,
+           "failed": [k for k, ok in checks.items() if not ok]}
+    emit("encdec_encoder", **rec)
+    return rec
+
+
+def encdec_decode(model, pm, cfg, tokens):
+    """(d) Prefill ENCDEC_PROMPT tokens over a context at capacity
+    ENCDEC_CAPACITY, then ENCDEC_STEPS decode steps eagerly and the same
+    steps as a replayed CUDA graph: the prefill's and each step's logits
+    against the forward over all the tokens at that position (max |d| /
+    max |logits| within DECODE_TOL), the replay equal to the eager step bit
+    for bit, the cache's bytes equal to ``kv_cache_bytes`` at the capacity,
+    no hand kernel launched in a step.  The planted fault: the first step
+    over cross caches from another context (another seed's prefill of the
+    same tokens), which must miss DECODE_TOL.  Times both steps (the
+    graph's is the one predicted, at the capacity, the slots the step
+    reads)."""
+    dname = cfg.compute_dtype
+    B, T = tokens.shape
+    P, n = ENCDEC_PROMPT, T - ENCDEC_PROMPT
+    ctx = model.make_ctx(B)
+    want = model(tokens, ctx_embed=ctx)[:, P - 1:].float().clone()
+    scale = want.abs().max()
+    rel = lambda x, t: float((x.float() - want[:, t]).abs().max() / scale)
+    other = model.make_ctx(B, torch.Generator(device="cuda").manual_seed(7))
+    foreign = model.prefill(tokens[:, :P], ctx_embed=other,
+                            max_len=ENCDEC_CAPACITY)[1]
+    last, cache = model.prefill(tokens[:, :P], ctx_embed=ctx,
+                                max_len=ENCDEC_CAPACITY)
+    prefill_err = rel(last, 0)
+    kv = og.kv_cache_bytes(cfg, B, ENCDEC_CAPACITY, dname)
+    start = cache.clone()
+    before = hand_launches()
+    eager, errs = [], []
+    for t in range(n):
+        logits, _ = model.decode_step(tokens[:, P + t], cache)
+        eager.append(logits.clone())
+        errs.append(rel(logits, t + 1))
+    fault = start.clone()
+    fault.xk, fault.xv = foreign.xk, foreign.xv
+    wrong, _ = model.decode_step(tokens[:, P], fault)
+    fault_err = rel(wrong, 1)
+    del fault, foreign, wrong
+    graph = DecodeGraph(model, start).load(start)
+    graph_errs, bitwise = [], True
+    for t in range(n):
+        logits = graph(tokens[:, P + t])
+        graph_errs.append(rel(logits, t + 1))
+        bitwise = bitwise and bool(torch.equal(logits, eager[t]))
+    in_step = launches_since(before)
+    tok = tokens[:, T - 1].contiguous()
+
+    def eager_step():
+        cache.pos.fill_(T - 1)
+        return model.decode_step(tok, cache)
+
+    def graph_step():
+        graph.cache.pos.fill_(T - 1)
+        return graph(tok)
+
+    eager_s, graph_s = profiler.measure(eager_step), profiler.measure(graph_step)
+    graph_trace = forward_trace(graph_step)
+    predicted, rows = pm.predict_ops(og.enumerate_decode_ops(
+        cfg, B, ENCDEC_CAPACITY, dtype=dname))
+    by_kind = {}
+    for r in rows:
+        by_kind[r.kind] = by_kind.get(r.kind, 0.0) + r.seconds * 1e3
+    tol = DECODE_TOL[dname]
+    checks = {"prefill_logits_ok": prefill_err <= tol,
+              "logits_ok": max(errs + graph_errs) <= tol,
+              "graph_bitwise": bitwise,
+              "planted_fault_caught": fault_err > tol,
+              "cache_bytes_ok": cache.nbytes == kv,
+              "no_hand_launch_in_step": not in_step}
+    rec = {"dtype": dname, "batch": B, "prompt": P, "steps": n,
+           "capacity": cache.capacity, "prefill_logits_rel_err": prefill_err,
+           "logits_rel_err": max(errs), "graph_logits_rel_err":
+           max(graph_errs), "logits_rel_err_by_step": errs,
+           "logits_tol": tol, "planted_fault_rel_err": fault_err,
+           "hand_launches_in_step": in_step,
+           "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
+           "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
+           "predicted_step_ms": predicted * 1e3,
+           "predicted_ms_by_kind": by_kind,
+           "err_pct": 100 * abs(predicted - graph_s) / graph_s,
+           "graph_trace": graph_trace, "checks": checks,
+           "failed": [k for k, ok in checks.items() if not ok]}
+    emit("encdec_decode", **rec)
+    return rec
+
+
+def encdec_serve(pm):
+    """(e) The ``serve`` launcher's engine at ENCDEC_SERVE_ARGS: 8 prompts
+    of 64 tokens, 32 new each, in two waves of 4, greedy, bf16, each wave
+    over the engine's 1,500-frame context.  Fails unless every request ends
+    with its 32 tokens, the flash kernel launched 36 times a wave (the
+    prefill's) and every served token equals eager steps' over the same
+    context (``check_served``, run after the launches are read).  Prices
+    the prompt and the decode steps over the contexts they ran at."""
+    args = serve_launcher.parse_args(ENCDEC_SERVE_ARGS)
+    cfg = dataclasses.replace(cfg_registry.get(ENCDEC),
+                              compute_dtype=args.compute_dtype)
+    before = hand_launches()
+    engine, done = serve_launcher.serve(args)
+    flash = launches_since(before).get("flash_attention", 0)
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    st = engine.stats
+    waves = -(-args.requests // args.max_batch)
+    want_flash = encdec_flash_launches(cfg)[0] * waves
+    failed = [] if sorted({len(r.out_tokens) for r in done}) == [
+        args.max_new] else ["tokens each"]
+    failed += [] if flash == want_flash else [f"{flash} flash launches, "
+                                              f"expected {want_flash}"]
+    failed += [f"requests unlike the eager steps {served['mismatched']}"] \
+        if served["mismatched"] else []
+    rec = {**out, "requests": len(done), "prefills": st.prefills,
+           "capacity": engine.max_len,
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+           "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+           "flash_launches": flash, "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "wall_s": engine.wall_s, "failed": failed}
+    emit("encdec_serve", **rec)
+    del engine
+    return rec
+
+
 def bound(nbytes, flops, dname="bfloat16"):
     """(the least ms the card could take to move ``nbytes`` and do
     ``flops`` in ``dname``, which of the two bounds it)."""
@@ -2293,8 +2648,10 @@ def kernel_lines(by_path, mm_pick):
     headed by ``mm_128x128x128`` (matmul) or the config ``select_config``
     picks (flash); the matmul's adds its time at the card-filling shape
     MM_FULL.  The flash line's ``hd256`` holds the same numbers for the
-    hd-256 instances at the hybrid path's shapes (``flash_hd256``) and
-    their launches on each path.  ``by_path``: each path's
+    hd-256 instances at the hybrid path's shapes and their launches on each
+    path; its ``encdec`` the same for whisper-small's non-causal calls,
+    the encoder's (8, 1500) and the cross attention's (8, 448 x 1500), and
+    the non-causal launches on each path (``flash_case``).  ``by_path``: each path's
     ``hand_launches``; ``launches`` is the main path's.  Every number here
     is measured, but ``bound_ms``."""
     launches = by_path["main"]
@@ -2326,39 +2683,44 @@ def kernel_lines(by_path, mm_pick):
                 "bound_ms": bms, "bound_by": by, "library_ms": libt["ms"],
                 "library_device_ms": libt["device_ms"], "configs": configs}
 
-    def flash_hd256(B, S, dt):
-        """One hd-256 case: recurrentgemma-2b's local attention at (B, S)
-        in ``dt``, 10 query heads over 1 KV head, causal, window W, as the
-        model calls it, in the config ``select_config`` picks.  Bounds count
-        the pairs the window keeps (``window_pairs``); the library call is
-        SDPA over KV heads repeated to 10, with the window as a boolean
-        mask where it masks (S > W)."""
-        h = cfg_registry.get(HYBRID)
-        W, Hq, dname = h.sliding_window, h.n_heads, str(dt).split(".")[1]
-        args = tuple(torch.randn(B, S, n, h.head_dim, generator=gen,
+    def flash_case(arch, B, Sq, Skv, dt, causal, window=None):
+        """One flash call as model ``arch`` makes it: (B, Sq) queries of
+        its heads over Skv keys in ``dt``, in the config ``select_config``
+        picks.  Bounds count the pairs the masks keep (a causal window's
+        ``window_pairs`` of a square; every pair without a mask); the
+        library call is SDPA over KV heads repeated to the query heads,
+        with a window as a boolean mask where it masks (Sq > window),
+        causal or not as the call."""
+        h = cfg_registry.get(arch)
+        Hq, hd, dname = h.n_heads, h.head_dim, str(dt).split(".")[1]
+        args = tuple(torch.randn(B, S, n, hd, generator=gen,
                                  device="cuda").to(dt)
-                     for n in (Hq, h.n_kv_heads, h.n_kv_heads))
-        fcfg = fk.select_config(S, S, h.head_dim)
-        kw = dict(causal=True, window=W, q_offset=0)
+                     for S, n in ((Sq, Hq), (Skv, h.n_kv_heads),
+                                  (Skv, h.n_kv_heads)))
+        fcfg = fk.select_config(Sq, Skv, hd)
+        kw = dict(causal=causal, window=window, q_offset=Skv - Sq)
         run = lambda cfg, q, k, v: fk.flash_attention_kernel(q, k, v, cfg,
                                                              **kw)
         plain = lambda cfg, q, k, v: fk.flash_attention_plain(q, k, v, cfg,
                                                               **kw)
         row, = each_config([fcfg], run, plain,
                            flash_tol(*args, fcfg, dname, kw), args)
+        pairs = window_pairs(Sq, window) if window else Sq * Skv
         bms, by = bound(args[0].element_size() * 2 * (args[0].numel()
                                                       + args[1].numel()),
-                        4.0 * B * Hq * h.head_dim * window_pairs(S, W), dname)
-        i = torch.arange(S, device="cuda")
-        mask = None if S <= W else \
-            (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+                        4.0 * B * Hq * hd * pairs, dname)
+        i = torch.arange(Sq, device="cuda")
+        mask = None if not window or Sq <= window else \
+            (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
         lib = timed(lambda q, k, v: torch.nn.functional
-                    .scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  is_causal=mask is None),
+                    .scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask,
+                        is_causal=causal and mask is None),
                     *(x.repeat_interleave(Hq // x.shape[2], dim=2)
                       .transpose(1, 2).contiguous() for x in args))
-        return {**row, "shape": [B, S, Hq, h.n_kv_heads, h.head_dim],
-                "window": W, "dtype": dname, "path": fk.load_path(*args),
+        return {**row, "shape": [B, Sq, Skv, Hq, h.n_kv_heads, hd],
+                "causal": causal, "window": window, "dtype": dname,
+                "path": fk.load_path(*args),
                 "plain_ms": profiler.measure(
                     lambda *x: plain(fcfg, *x), *args) * 1e3,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
@@ -2462,8 +2824,15 @@ def kernel_lines(by_path, mm_pick):
             f32_args, sdpa, tuple(map(per_head, f32_args)), nbytes, flops),
         "hd256": {"launches_by_path": {p: n.get("flash_attention@hd256", 0)
                                        for p, n in by_path.items()},
-                  "cases": [flash_hd256(B, S, dt) for dt in (bf, f32)
-                            for B, S in HYBRID_FORWARDS]}})
+                  "cases": [flash_case(HYBRID, B, S, S, dt, True,
+                                       cfg_registry.get(HYBRID)
+                                       .sliding_window)
+                            for dt in (bf, f32) for B, S in HYBRID_FORWARDS]},
+        "encdec": {"launches_by_path": {
+            p: n.get("flash_attention@noncausal", 0)
+            for p, n in by_path.items()},
+            "cases": [flash_case(ENCDEC, B, Sq, L, dt, False)
+                      for dt in (bf, f32) for B, Sq, L in encdec_timed()]}})
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
@@ -2472,11 +2841,20 @@ def kernel_lines(by_path, mm_pick):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
-    cases = lines[-1]["hd256"]["cases"]
-    if not all(c["ok"] for c in cases):
-        raise AssertionError(f"flash hd 256 at the hybrid path's shapes: "
-                             f"max errs {[c['max_abs_err'] for c in cases]}")
+    for key in ("hd256", "encdec"):
+        cases = lines[-1][key]["cases"]
+        if not all(c["ok"] for c in cases):
+            raise AssertionError(f"flash {key} cases: max errs "
+                                 f"{[c['max_abs_err'] for c in cases]}")
     return lines
+
+
+def encdec_timed():
+    """The (B, Sq, Skv) of the ``kernels`` line's encoder–decoder rows:
+    the encoder and the cross attention of the (8, 448) forward."""
+    L = cfg_registry.get(ENCDEC).encoder.n_frames
+    (B, S), _ = ENCDEC_FORWARDS
+    return ((B, L, L), (B, S, L))
 
 
 def window_pairs(S: int, window: int) -> int:
@@ -2597,8 +2975,12 @@ def main() -> int:
     reset_launches()
     hybrid = phase_hybrid(store)
     by_path["hybrid"] = hand_launches()
+    reset_launches()
+    encdec = phase_encdec(store)
+    by_path["encdec"] = hand_launches()
     emit("path_launches", **by_path)
-    for path in ("decode", "serve", "grid", "schedule", "service", "hybrid"):
+    for path in ("decode", "serve", "grid", "schedule", "service", "hybrid",
+                 "encdec"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -2613,7 +2995,7 @@ def main() -> int:
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
-                  kernels=kernels,
+                  encdec=encdec, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -271,8 +271,11 @@ def _launch(q, k, v, config, causal, window, q_offset):
     flash_attention_kernel.launches += 1
     by_hd = flash_attention_kernel.launches_by_hd
     by_hd[hd] = by_hd.get(hd, 0) + 1
+    by_mask = flash_attention_kernel.launches_by_causal
+    by_mask[bool(causal)] = by_mask.get(bool(causal), 0) + 1
     return o
 
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_by_hd = {}   # the same launches by head dim
+flash_attention_kernel.launches_by_causal = {}   # and by the causal flag

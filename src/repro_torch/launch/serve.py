@@ -4,9 +4,13 @@ package's ``launch/serve.py``, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
       --requests 8 --max-new 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+      --prompt-len 64 --max-new 32 --compute-dtype bfloat16
 
 Runs on the card unless ``--device cpu``; weights are random from
-``--seed``.  Outside float32 the weights are cast to the compute dtype
+``--seed``.  A model that takes a context (whisper-small's 1,500 stub
+frames, llama-3.2-vision's patches) gets the engine's stub context each
+wave.  Outside float32 the weights are cast to the compute dtype
 once, before serving (``Transformer.cast_weights_``: the values the
 per-call cast gives).
 """

@@ -12,8 +12,10 @@ keeps (B, W, Hkv, hd): each (batch, KV head) pair is then one contiguous
 (W, hd) matrix, so the decode step's two products are batched GEMMs over
 B·Hkv that read the cache in place, with no copy and no repeat of KV heads.
 A sliding-window layer's cache is a ring of min(window, capacity) slots
-(``init_kv_cache(window=)``, ``ring_slots``).  Cross attention comes with
-its model kind.
+(``init_kv_cache(window=)``, ``ring_slots``).  Cross attention
+(``Attention(cross=True)``) projects K and V from a context, rotates
+nothing, attends over every context position, and decodes against K/V
+computed once at the prefill (``decode_cross``).
 """
 from __future__ import annotations
 
@@ -59,38 +61,50 @@ def apply_rope(x, positions, theta: float):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, *, device=None):
+    """Self-attention, or with ``cross`` attention over a context: no
+    biases there (``init_attn(cross=True)``)."""
+
+    def __init__(self, cfg, *, cross=False, device=None):
         super().__init__()
         d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        bias = cfg.qkv_bias and not cross
         self.cfg = cfg
-        self.wq = L.Linear(d, hq * hd, bias=cfg.qkv_bias, device=device)
-        self.wk = L.Linear(d, hkv * hd, bias=cfg.qkv_bias, device=device)
-        self.wv = L.Linear(d, hkv * hd, bias=cfg.qkv_bias, device=device)
+        self.wq = L.Linear(d, hq * hd, bias=bias, device=device)
+        self.wk = L.Linear(d, hkv * hd, bias=bias, device=device)
+        self.wv = L.Linear(d, hkv * hd, bias=bias, device=device)
         self.wo = L.Linear(hq * hd, d, device=device)
 
     def reset(self, gen: torch.Generator):
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset(gen)
 
-    def _project(self, x, compute_dtype, rope):
+    def _project(self, x, compute_dtype, ctx=None):
+        """q from x; k and v from ``ctx`` where given, else from x
+        (``_project_qkv``)."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        q = self.wq(x, compute_dtype).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x, compute_dtype).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x, compute_dtype).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-        return rotate(q, *rope), rotate(k, *rope), v
+        B = x.shape[0]
+        src = x if ctx is None else ctx
+        q = self.wq(x, compute_dtype).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+        k = self.wk(src, compute_dtype).reshape(B, -1, cfg.n_kv_heads,
+                                                cfg.head_dim)
+        v = self.wv(src, compute_dtype).reshape(B, -1, cfg.n_kv_heads,
+                                                cfg.head_dim)
+        return q, k, v
 
-    def forward(self, x, *, causal=True, window=None, compute_dtype=None,
-                rope=None):
-        """Returns (out, (k, v)), k and v (B, S, Hkv, hd) post-RoPE for cache
-        seeding, as the JAX package's ``attn_forward``.  ``rope``: (cos, sin)
-        from ``rope_tables`` over positions 0..S-1, computed here when not
-        given."""
+    def forward(self, x, ctx=None, *, causal=True, window=None,
+                compute_dtype=None, rope=None):
+        """Returns (out, (k, v)), k and v (B, Skv, Hkv, hd) post-RoPE for
+        cache seeding, as the JAX package's ``attn_forward``.  ``ctx`` (B,
+        Lx, d): cross attention, K and V from it, never rotated.  ``rope``:
+        (cos, sin) from ``rope_tables`` over positions 0..S-1, computed here
+        when None; False rotates nothing (the encoder)."""
         B, S, _ = x.shape
-        if rope is None:
-            rope = rope_tables(torch.arange(S, device=x.device)[None, :],
-                               self.cfg.head_dim, self.cfg.rope_theta)
-        q, k, v = self._project(x, compute_dtype, rope)
+        q, k, v = self._project(x, compute_dtype, ctx)
+        if rope is not False and ctx is None:
+            if rope is None:
+                rope = rope_tables(torch.arange(S, device=x.device)[None, :],
+                                   self.cfg.head_dim, self.cfg.rope_theta)
+            q, k = rotate(q, *rope), rotate(k, *rope)
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
         return self.wo(o.reshape(B, S, -1), compute_dtype), (k, v)
 
@@ -106,11 +120,25 @@ class Attention(nn.Module):
         positions <= pos - window.  ``rope``: ``rope_tables`` at ``pos``.
         Returns (B, 1, d)."""
         B = x.shape[0]
-        q, k, v = self._project(x, compute_dtype, rope)
+        q, k, v = self._project(x, compute_dtype)
+        q, k = rotate(q, *rope), rotate(k, *rope)
         k_cache.index_copy_(2, slot, k.to(k_cache.dtype).transpose(1, 2))
         v_cache.index_copy_(2, slot, v.to(v_cache.dtype).transpose(1, 2))
         o = decode_attention(q, k_cache, v_cache, slot_positions, pos,
                              window=window)
+        return self.wo(o.reshape(B, 1, -1), compute_dtype)
+
+    def decode_cross(self, x, k_cache, v_cache, *, compute_dtype=None):
+        """One token a sequence against a context's K/V (the ``cross``
+        branch of ``attn_decode``): x (B, 1, d), q only; the caches (B, Hkv,
+        Lx, hd) hold K and V projected at the prefill and are only read,
+        every slot valid (slot positions 0..Lx-1 at ``pos`` Lx).  Nothing
+        is read on the host.  Returns (B, 1, d)."""
+        cfg = self.cfg
+        B, Lx = x.shape[0], k_cache.shape[2]
+        q = self.wq(x, compute_dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        o = decode_attention(q, k_cache, v_cache,
+                             torch.arange(Lx, device=k_cache.device), Lx)
         return self.wo(o.reshape(B, 1, -1), compute_dtype)
 
 

@@ -4,9 +4,11 @@ arrays, becomes the port's ``Transformer``.
 The JAX stack stacks the parameters of each block-pattern position
 ``sub<i>`` along a leading period axis (``blocks/sub<i>/...``) and keeps a
 non-divisible remainder as ``rem<r>``; layer ``p * period + i`` is period
-``p`` of ``sub<i>``.  Module attribute names equal the JAX keys, so each
-leaf lands on ``blocks.<layer>.<key path joined by dots>``.  Weights keep
-the JAX ``(d_in, d_out)`` layout: nothing is transposed.
+``p`` of ``sub<i>``.  An encoder's blocks are stacked over its layers
+(``encoder/blocks/...``).  Module attribute names equal the JAX keys, so
+each leaf lands on ``blocks.<layer>.<key path joined by dots>`` (or
+``encoder.blocks.<layer>...``).  Weights keep the JAX ``(d_in, d_out)``
+layout: nothing is transposed.
 """
 from __future__ import annotations
 
@@ -49,6 +51,12 @@ def from_jax_params(params_np: Dict, cfg: C.ModelConfig, *,
             layer = n_periods * period + int(key[len("rem"):])
             for name, arr in _flatten(val).items():
                 flat[f"blocks.{layer}.{name}"] = arr
+        elif key == "encoder":
+            for name, arr in _flatten(val["blocks"]).items():
+                for i in range(cfg.encoder.n_layers):
+                    flat[f"encoder.blocks.{i}.{name}"] = arr[i]
+            flat.update(_flatten({"final_norm": val["final_norm"]},
+                                 "encoder."))
         else:
             flat.update(_flatten({key: val}))
     state = {k: torch.from_numpy(np.array(v, np.float32)).to(dev)

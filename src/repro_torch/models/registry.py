@@ -2,7 +2,8 @@
 device, its weights drawn from a seeded ``torch.Generator``.  The model
 holds its weights, so it is what the serving engine calls where the JAX
 package's ``Model`` takes parameters: ``prefill``, ``decode_step``,
-``init_cache``, ``make_ctx`` and ``padded_vocab``."""
+``init_cache``, ``padded_vocab`` and the stub context's ``needs_ctx``,
+``ctx_len`` and ``make_ctx``."""
 from __future__ import annotations
 
 import torch

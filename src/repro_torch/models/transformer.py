@@ -1,15 +1,19 @@
-"""Decoder stack: the dense ``ATTN`` models and the hybrid ones
-(``RGLRU`` and sliding-window ``LOCAL_ATTN`` blocks, recurrentgemma-2b) in
-the JAX package's three modes, ``forward`` over a full sequence,
-``prefill`` (forward, decode caches and last-token logits) and
-``decode_step`` (one token against the caches).
+"""Decoder stack: the dense ``ATTN`` models, the hybrid ones (``RGLRU``
+and sliding-window ``LOCAL_ATTN`` blocks, recurrentgemma-2b) and the
+encoder–decoder ones (``CROSS_ATTN`` blocks over a context: whisper-small,
+whose context is its encoder's output over stub frame embeddings, and
+llama-3.2-vision, whose context is stub patch embeddings) in the JAX
+package's three modes, ``forward`` over a full sequence, ``prefill``
+(forward, decode caches and last-token logits) and ``decode_step`` (one
+token against the caches).
 
 The JAX package stacks per-period parameters and runs them under
 ``lax.scan``; PyTorch runs eagerly, so here the layers are a plain
 ``ModuleList`` walked by a Python loop (layer ``i`` is the JAX package's
 period ``i // len(block_pattern)``, sub-block ``i % len(block_pattern)``,
-of kind ``cfg.layer_kinds[i]``).  Other block kinds, MoE and encoders
-raise ``NotImplementedError``.
+of kind ``cfg.layer_kinds[i]``; the encoder's layer ``i`` is period ``i``
+of ``encoder.blocks``).  The xLSTM block kinds and MoE raise
+``NotImplementedError``.
 
 ``decode_step`` updates its ``KVCache`` in place (the JAX step returns a
 new cache; XLA donates the old one's buffers) and reads the position from
@@ -29,9 +33,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 
-PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU)
-_LATER = {C.CROSS_ATTN: "the vision model", C.ENC_ATTN: "the audio model",
-          C.MLSTM: "the xLSTM model", C.SLSTM: "the xLSTM model"}
+PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU, C.CROSS_ATTN, C.ENC_ATTN)
+_LATER = {C.MLSTM: "the xLSTM model", C.SLSTM: "the xLSTM model"}
 
 
 def check_supported(cfg: C.ModelConfig):
@@ -43,25 +46,28 @@ def check_supported(cfg: C.ModelConfig):
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE FFNs are ported with the "
                                   f"MoE slice")
-    if cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: encoders are ported with the "
-                                  f"audio model's slice")
 
 
 class Block(nn.Module):
-    """Pre-norm mixer, global or sliding-window attention (``attn``) or the
-    RG-LRU block (``rec``), then the (optional) gated MLP, each with a
-    residual (the JAX package's ``apply_block`` for these kinds)."""
+    """Pre-norm mixer, global, sliding-window or encoder (non-causal, no
+    RoPE) attention (``attn``) or the RG-LRU block (``rec``); in a
+    ``CROSS_ATTN`` block then cross attention over the context (``ln_x``,
+    ``xattn``); then the (optional) MLP; each with a residual (the JAX
+    package's ``apply_block`` for these kinds)."""
 
     def __init__(self, cfg: C.ModelConfig, kind: str, *, device=None):
         super().__init__()
         self.kind = kind
         self.window = cfg.sliding_window if kind == C.LOCAL_ATTN else None
+        self.causal = kind != C.ENC_ATTN
         self.ln1 = L.RMSNorm(cfg.d_model, device=device)
         if kind == C.RGLRU:
             self.rec = R.RGLRUBlock(cfg, device=device)
         else:
             self.attn = A.Attention(cfg, device=device)
+        if kind == C.CROSS_ATTN:
+            self.ln_x = L.RMSNorm(cfg.d_model, device=device)
+            self.xattn = A.Attention(cfg, cross=True, device=device)
         if cfg.d_ff > 0:
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
             self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, device=device)
@@ -70,31 +76,47 @@ class Block(nn.Module):
 
     def reset(self, gen: torch.Generator):
         (self.rec if self.kind == C.RGLRU else self.attn).reset(gen)
+        if self.kind == C.CROSS_ATTN:
+            self.xattn.reset(gen)
         if self.mlp is not None:
             self.mlp.reset(gen)
 
-    def forward(self, x, cfg: C.ModelConfig, cdt, rope=None):
-        """Returns (x, state): the attention's post-RoPE (k, v), or the
-        RG-LRU's (h, conv) after the sequence, for the decode cache."""
+    def forward(self, x, cfg: C.ModelConfig, cdt, rope=None, ctx=None):
+        """Returns (x, state): the attention's post-RoPE (k, v), followed in
+        a ``CROSS_ATTN`` block by the context's (k, v), or the RG-LRU's (h,
+        conv) after the sequence, for the decode cache.  ``ctx``: the
+        context (B, Lx, d) of a ``CROSS_ATTN`` block."""
         h = self.ln1(x, cfg.norm_eps)
         if self.kind == C.RGLRU:
             y, state = self.rec(h, cdt)
         else:
-            y, state = self.attn(h, causal=True, window=self.window,
-                                 compute_dtype=cdt, rope=rope)
-        return self._ffn(x + y, cfg, cdt), state
+            y, state = self.attn(h, causal=self.causal, window=self.window,
+                                 compute_dtype=cdt,
+                                 rope=rope if self.causal else False)
+        x = x + y
+        if self.kind == C.CROSS_ATTN:
+            y, cross = self.xattn(self.ln_x(x, cfg.norm_eps), ctx,
+                                  causal=False, compute_dtype=cdt)
+            x, state = x + y, state + cross
+        return self._ffn(x, cfg, cdt), state
 
     def decode(self, x, state, pos, slots, cfg: C.ModelConfig, cdt, rope):
         """One token (``apply_block_decode``).  ``state``: this layer's
-        (k, v) caches or (h, conv); ``slots``: (write slot, slot positions)
-        of an attention layer's cache."""
+        (k, v) caches, and a ``CROSS_ATTN`` block's context (k, v) after
+        them, or (h, conv); ``slots``: (write slot, slot positions) of an
+        attention layer's cache."""
         h = self.ln1(x, cfg.norm_eps)
         if self.kind == C.RGLRU:
             y = self.rec.step(h, *state, cdt)
         else:
-            y = self.attn.decode(h, *state, pos, *slots, window=self.window,
-                                 compute_dtype=cdt, rope=rope)
-        return self._ffn(x + y, cfg, cdt)
+            y = self.attn.decode(h, *state[:2], pos, *slots,
+                                 window=self.window, compute_dtype=cdt,
+                                 rope=rope)
+        x = x + y
+        if self.kind == C.CROSS_ATTN:
+            x = x + self.xattn.decode_cross(self.ln_x(x, cfg.norm_eps),
+                                            *state[2:], compute_dtype=cdt)
+        return self._ffn(x, cfg, cdt)
 
     def _ffn(self, x, cfg: C.ModelConfig, cdt):
         if self.mlp is not None:
@@ -107,27 +129,35 @@ class KVCache:
     """Decode state of the whole stack, per layer: an attention layer's K
     and V (B, Hkv, W, hd), W = ``capacity`` for global attention and a
     ring of min(window, capacity) slots for sliding-window attention; an
-    RG-LRU layer's h (B, dl) f32 and conv window (B, width - 1, dl).  The
-    lists hold None where a layer has no such tensor.  ``pos``, the
-    position of the next token, is a one-element int64 tensor on the
-    caches' device; ``capacity``, the positions a decode may reach, is
-    fixed when the cache is made."""
+    RG-LRU layer's h (B, dl) f32 and conv window (B, width - 1, dl); a
+    ``CROSS_ATTN`` layer's context K and V besides (``xk``, ``xv``: (B,
+    Hkv, Lx, hd), written at the prefill, read by every step).  The lists
+    hold None where a layer has no such tensor.  ``pos``, the position of
+    the next token, is a one-element int64 tensor on the caches' device;
+    ``capacity``, the positions a decode may reach, is fixed when the
+    cache is made."""
     k: List[Optional[torch.Tensor]]
     v: List[Optional[torch.Tensor]]
     h: List[Optional[torch.Tensor]]
     conv: List[Optional[torch.Tensor]]
+    xk: List[Optional[torch.Tensor]]
+    xv: List[Optional[torch.Tensor]]
     pos: torch.Tensor
     capacity: int
 
     def tensors(self) -> List[torch.Tensor]:
         """Every state tensor, ``pos`` last."""
-        return [t for t in self.k + self.v + self.h + self.conv
-                if t is not None] + [self.pos]
+        return [t for t in self.k + self.v + self.h + self.conv + self.xk
+                + self.xv if t is not None] + [self.pos]
 
     def layer(self, i: int):
-        """Layer ``i``'s state: (k, v), or (h, conv) for an RG-LRU layer."""
-        return (self.k[i], self.v[i]) if self.h[i] is None else \
-            (self.h[i], self.conv[i])
+        """Layer ``i``'s state: (k, v), (k, v, xk, xv) for a cross-attention
+        layer, or (h, conv) for an RG-LRU layer."""
+        if self.h[i] is not None:
+            return self.h[i], self.conv[i]
+        if self.xk[i] is not None:
+            return self.k[i], self.v[i], self.xk[i], self.xv[i]
+        return self.k[i], self.v[i]
 
     @property
     def batch(self) -> int:
@@ -146,7 +176,7 @@ class KVCache:
     def clone(self) -> "KVCache":
         c = lambda ts: [None if t is None else t.clone() for t in ts]
         return KVCache(c(self.k), c(self.v), c(self.h), c(self.conv),
-                       self.pos.clone(), self.capacity)
+                       c(self.xk), c(self.xv), self.pos.clone(), self.capacity)
 
 
 class Transformer(nn.Module):
@@ -168,6 +198,14 @@ class Transformer(nn.Module):
             self.unembed = None
         self.blocks = nn.ModuleList(Block(cfg, kind, device=device)
                                     for kind in cfg.layer_kinds)
+        if cfg.encoder is not None:
+            self.encoder = nn.Module()
+            self.encoder.blocks = nn.ModuleList(
+                Block(cfg, C.ENC_ATTN, device=device)
+                for _ in range(cfg.encoder.n_layers))
+            self.encoder.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        else:
+            self.encoder = None
 
     def reset(self, gen: torch.Generator):
         """Random weights in the JAX package's distributions (normal /
@@ -177,6 +215,9 @@ class Transformer(nn.Module):
             self.unembed.reset(gen)
         for blk in self.blocks:
             blk.reset(gen)
+        if self.encoder is not None:
+            for blk in self.encoder.blocks:
+                blk.reset(gen)
 
     def cast_weights_(self, dtype: torch.dtype) -> "Transformer":
         """Store matmul and embedding weights (and biases) in ``dtype`` once,
@@ -195,11 +236,58 @@ class Transformer(nn.Module):
     def padded_vocab(self) -> int:
         return L.pad_vocab(self.cfg.vocab_size)
 
-    def make_ctx(self, batch: int):
+    def needs_ctx(self) -> bool:
+        """Whether the model takes a context: an encoder's frames or
+        cross-attention layers (``Model.needs_ctx``)."""
+        return self.encoder is not None or C.CROSS_ATTN in self.cfg.layer_kinds
+
+    def ctx_len(self) -> int:
+        """Positions of the context: the encoder's frames, else
+        ``cross_attn_context_len`` (``Model.ctx_len``)."""
+        cfg = self.cfg
+        return cfg.encoder.n_frames if cfg.encoder is not None else \
+            cfg.cross_attn_context_len
+
+    def make_ctx(self, batch: int, generator: torch.Generator = None):
         """The stub modality context of the JAX package's ``Model.make_ctx``:
-        None, since no model the port builds has cross attention or an
-        encoder (``check_supported``)."""
-        return None
+        (batch, ``ctx_len()``, d) standard normal, drawn in f32 and cast to
+        the compute dtype, on the model's device, from ``generator`` (by
+        default one seeded 0, as the JAX engine draws every wave's from
+        ``key(0)``; the bits differ); None for a model that takes none."""
+        if not self.needs_ctx():
+            return None
+        dev = self.embed.w.device
+        gen = generator or torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn((batch, self.ctx_len(), self.cfg.d_model),
+                        generator=gen, device=dev)
+        return x.to(getattr(torch, self.cfg.compute_dtype))
+
+    def encode(self, ctx_embed: torch.Tensor) -> torch.Tensor:
+        """The encoder stack over frame embeddings (B, n_frames, d):
+        non-causal attention without RoPE, then the encoder's final norm
+        (``encode``)."""
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        x = ctx_embed
+        for blk in self.encoder.blocks:
+            x, _ = blk(x, cfg, cdt)
+        return self.encoder.final_norm(x, cfg.norm_eps)
+
+    def context_for(self, ctx_embed):
+        """What the cross-attention layers attend to (``context_for``): the
+        encoder's output over ``ctx_embed``, or ``ctx_embed`` itself (patch
+        embeddings); None for a model that takes no context.  A model that
+        needs one and gets none raises ``ValueError``; one that takes none
+        and gets one raises ``TypeError`` (the JAX package ignores it)."""
+        if not self.needs_ctx():
+            if ctx_embed is not None:
+                raise TypeError(f"{self.cfg.name} takes no context embedding")
+            return None
+        if ctx_embed is None:
+            raise ValueError(f"{self.cfg.name} needs a context embedding "
+                             f"(make_ctx)")
+        return self.encode(ctx_embed) if self.encoder is not None \
+            else ctx_embed
 
     def _head(self):
         return self.unembed if self.unembed is not None else self.embed
@@ -212,15 +300,18 @@ class Transformer(nn.Module):
                                "with the training slice); run it under "
                                "torch.no_grad()")
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, ctx_embed=None) -> torch.Tensor:
+        """``ctx_embed``: the context of a model that ``needs_ctx``, (B,
+        ``ctx_len()``, d) (``make_ctx``)."""
         self._no_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
+        ctx = self.context_for(ctx_embed)
         x = self.embed(tokens, cdt)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for blk in self.blocks:
-            x, _ = blk(x, cfg, cdt, rope)
+            x, _ = blk(x, cfg, cdt, rope, ctx)
         x = self.final_norm(x, cfg.norm_eps)
         return self._head().unembed(x, cdt)
 
@@ -229,47 +320,52 @@ class Transformer(nn.Module):
         ``capacity``."""
         return min(self.cfg.sliding_window, capacity)
 
-    def prefill(self, tokens: torch.Tensor, *, max_len: int = None):
+    def prefill(self, tokens: torch.Tensor, *, ctx_embed=None,
+                max_len: int = None):
         """tokens (B, S) -> (last-token logits (B, Vp), KVCache) of capacity
         ``max_len`` (default S + 64; never below S), ``pos`` = S.  Global
         attention layers hold the prompt's post-RoPE K/V in the compute
         dtype, zero-padded to the capacity; sliding-window layers the last
         min(W, S) positions of their ring of W = min(window, capacity)
         slots, each at slot position mod W (``_seed_cache``); RG-LRU layers
-        their state after the prompt.  Only the last position is normed and
-        unembedded.  No context embedding: the port builds no model with
-        cross attention or an encoder."""
+        their state after the prompt; cross-attention layers besides the
+        context's K/V, unpadded.  Only the last position is normed and
+        unembedded.  ``ctx_embed`` as in ``forward``."""
         self._no_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         B, S = tokens.shape
         cap = max(max_len or S + 64, S)
         dev = tokens.device
+        ctx = self.context_for(ctx_embed)
         x = self.embed(tokens, cdt)
         positions = torch.arange(S, device=dev)[None, :]
         rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         n_layers = len(self.blocks)
-        ks, vs, hs, convs = ([None] * n_layers for _ in range(4))
+        ks, vs, hs, convs, xks, xvs = ([None] * n_layers for _ in range(6))
         for i, blk in enumerate(self.blocks):
-            x, state = blk(x, cfg, cdt, rope)
+            x, state = blk(x, cfg, cdt, rope, ctx)
             if blk.kind == C.RGLRU:
                 hs[i], convs[i] = state
                 continue
             W = cap if blk.window is None else self._ring(cap)
-            ks[i], vs[i] = A.seed_kv_cache(*state, W)
+            ks[i], vs[i] = A.seed_kv_cache(*state[:2], W)
+            if blk.kind == C.CROSS_ATTN:
+                xks[i], xvs[i] = (t.transpose(1, 2).contiguous()
+                                  for t in state[2:])
         x = self.final_norm(x[:, -1:], cfg.norm_eps)
         logits = self._head().unembed(x, cdt)[:, 0]
         pos = torch.full((1,), S, dtype=torch.int64, device=dev)
-        return logits, KVCache(ks, vs, hs, convs, pos, cap)
+        return logits, KVCache(ks, vs, hs, convs, xks, xvs, pos, cap)
 
     def decode_step(self, token: torch.Tensor, cache: KVCache):
         """token (B,) int -> (logits (B, Vp), cache): writes the token's K/V
         at slot ``pos`` of every global attention layer (attending over all
         its slots, those past ``pos`` masked) and at slot ``pos`` mod W of
-        every ring (``A.ring_slots``), advances every RG-LRU state and
-        ``pos``, all in place and on the device (no host read of ``pos``:
-        the step is graph-capturable).  The caller keeps ``pos`` below the
-        capacity."""
+        every ring (``A.ring_slots``), attends over every cross-attention
+        layer's context K/V, advances every RG-LRU state and ``pos``, all in
+        place and on the device (no host read of ``pos``: the step is
+        graph-capturable).  The caller keeps ``pos`` below the capacity."""
         self._no_grad_on_card(token)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
@@ -290,20 +386,26 @@ class Transformer(nn.Module):
                    dtype=torch.bfloat16) -> KVCache:
         """Zeroed caches of capacity ``seq_len`` on the model's device
         (``init_layer_cache``: rings of min(window, seq_len) slots, RG-LRU
-        states with h in f32), positioned at ``pos`` (default seq_len - 1:
-        'a KV cache of seq_len')."""
+        states with h in f32, cross-attention layers' context K/V of
+        ``cross_attn_context_len`` slots), positioned at ``pos`` (default
+        seq_len - 1: 'a KV cache of seq_len')."""
+        cfg = self.cfg
         dev = self.embed.w.device
         n_layers = len(self.blocks)
-        ks, vs, hs, convs = ([None] * n_layers for _ in range(4))
+        ks, vs, hs, convs, xks, xvs = ([None] * n_layers for _ in range(6))
         for i, blk in enumerate(self.blocks):
             if blk.kind == C.RGLRU:
-                hs[i], convs[i] = R.init_rglru_cache(self.cfg, batch,
+                hs[i], convs[i] = R.init_rglru_cache(cfg, batch,
                                                      dtype=dtype, device=dev)
-            else:
-                ks[i], vs[i] = A.init_kv_cache(
-                    self.cfg, batch, seq_len, window=blk.window, dtype=dtype,
+                continue
+            ks[i], vs[i] = A.init_kv_cache(cfg, batch, seq_len,
+                                           window=blk.window, dtype=dtype,
+                                           device=dev)
+            if blk.kind == C.CROSS_ATTN:
+                xks[i], xvs[i] = A.init_kv_cache(
+                    cfg, batch, cfg.cross_attn_context_len, dtype=dtype,
                     device=dev)
         p = seq_len - 1 if pos is None else pos
-        return KVCache(ks, vs, hs, convs,
+        return KVCache(ks, vs, hs, convs, xks, xvs,
                        torch.full((1,), p, dtype=torch.int64, device=dev),
                        seq_len)

@@ -3,8 +3,8 @@ decode steps, with greedy/temperature sampling (the JAX package's
 ``serving/engine.py``).
 
 The engine seats up to ``max_batch`` requests a wave, left-pads their
-prompts to one length, prefills them together and decodes them in
-lockstep.  The JAX engine compiles its decode step once (``jax.jit``,
+prompts to one length, prefills them together (with the model's stub
+context, ``make_ctx``, where it takes one) and decodes them in lockstep.  The JAX engine compiles its decode step once (``jax.jit``,
 fixed shapes); here the counterpart on the card is a CUDA graph of one
 decode step, captured once per (wave batch, cache capacity) and replayed
 for every token, so a step costs one launch instead of the ~1,000 eager
@@ -189,8 +189,10 @@ class ServingEngine:
             toks = np.zeros((len(wave), S), np.int32)
             for i, r in enumerate(wave):
                 toks[i, S - len(r.prompt):] = r.prompt  # left-pad
+            ctx = self.model.make_ctx(len(wave))
             logits, cache = self.model.prefill(
-                torch.from_numpy(toks).long().to(dev), max_len=self.max_len)
+                torch.from_numpy(toks).long().to(dev), ctx_embed=ctx,
+                max_len=self.max_len)
             self.stats.prefills += 1
             next_tok = self._sample(logits, wave)
             t_first = time.perf_counter()   # first token sampled at prefill

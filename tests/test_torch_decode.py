@@ -1,8 +1,11 @@
 """The port's decode path against the JAX package's, on the same weights
 (``convert.from_jax_params``) and the same numpy inputs from a seed, at
-``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini`` and the hybrid
+``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini``, the hybrid
 ``reduced("recurrentgemma-2b", n_layers=5)`` (RG-LRU and sliding-window
-layers; its ring wraps in ``tests/test_torch_recurrent.py``).
+layers; its ring wraps in ``tests/test_torch_recurrent.py``) and the
+encoder–decoder ``reduced("whisper-small")`` and
+``reduced("llama-3.2-vision-11b")`` (cross attention over the same numpy
+context on both sides).
 
 Tolerances:
 - ``decode_attention``, f32: atol 2e-5 (``tests/test_attention.py``).
@@ -46,7 +49,10 @@ from repro_torch.models import layers as tL  # noqa: E402
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
-                                                          n_layers=5)}
+                                                          n_layers=5),
+         "whisper-small-reduced": lambda m: m.reduced("whisper-small"),
+         "llama-3.2-vision-reduced": lambda m: m.reduced(
+             "llama-3.2-vision-11b")}
 NAMES = list(jcr.ARCH_NAMES) + list(jcr.PAPER_MODELS)
 CTXS = (1, 512, 4096)
 
@@ -75,6 +81,16 @@ def _both(name):
     params = _params_np(jcfg)
     return (jcfg, jmr.build(jcfg), jax.tree.map(jnp.asarray, params),
             tcfg, convert.from_jax_params(params, tcfg, device="cpu"))
+
+
+def _ctx(jmodel, batch, seed=4):
+    """A numpy context for a model that takes one, as (JAX, torch)
+    arguments; (None, None) otherwise."""
+    if not jmodel.needs_ctx():
+        return None, None
+    ctx = np.random.default_rng(seed).standard_normal(
+        (batch, jmodel.ctx_len(), jmodel.cfg.d_model)).astype(np.float32)
+    return jnp.asarray(ctx), torch.from_numpy(ctx)
 
 
 # ----- decode_attention -----
@@ -135,10 +151,13 @@ def test_prefill_and_two_decode_steps_match_jax(name):
     jcfg, jmodel, jparams, tcfg, model = _both(name)
     B, S = 2, 12
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (B, S + 2))
-    jlg, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :S]))
+    jctx, tctx = _ctx(jmodel, B)
+    jlg, jcache = jmodel.prefill(jparams, jnp.asarray(tokens[:, :S]),
+                                 ctx_embed=jctx)
     fk.flash_attention_kernel.launches = 0
     with torch.no_grad():
-        lg, cache = model.prefill(torch.from_numpy(tokens[:, :S]))
+        lg, cache = model.prefill(torch.from_numpy(tokens[:, :S]),
+                                  ctx_embed=tctx)
     assert fk.flash_attention_kernel.launches == 0      # CPU: plain version
     assert lg.shape == (B, tL.pad_vocab(jcfg.vocab_size))
     assert cache.capacity == S + 64 and int(cache.pos) == S
@@ -172,12 +191,15 @@ def _jax_layer_cache(jcfg, jcache, i):
 def test_prefill_seeds_the_jax_cache(name):
     """The seeded caches hold the JAX package's post-RoPE K/V (head-major),
     zeros past the prompt, at the capacity asked for; an RG-LRU layer its
-    (h, conv) state."""
+    (h, conv) state; a cross-attention layer the context's K/V besides."""
     jcfg, jmodel, jparams, tcfg, model = _both(name)
     tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 9))
-    _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), max_len=16)
+    jctx, tctx = _ctx(jmodel, 2)
+    _, jcache = jmodel.prefill(jparams, jnp.asarray(tokens), ctx_embed=jctx,
+                               max_len=16)
     with torch.no_grad():
-        _, cache = model.prefill(torch.from_numpy(tokens), max_len=16)
+        _, cache = model.prefill(torch.from_numpy(tokens), ctx_embed=tctx,
+                                 max_len=16)
     assert cache.capacity == 16
     for i in range(tcfg.n_layers):
         jl = _jax_layer_cache(jcfg, jcache, i)
@@ -190,19 +212,30 @@ def test_prefill_seeds_the_jax_cache(name):
         np.testing.assert_allclose(cache.k[i].transpose(1, 2).numpy(),
                                    jl["self"]["k"], atol=1e-4, rtol=1e-4)
         assert not cache.k[i][:, :, 9:].any() and not cache.v[i][:, :, 9:].any()
+        assert ("cross" in jl) == (cache.xk[i] is not None)
+        if "cross" in jl:
+            for got, key in ((cache.xk[i], "k"), (cache.xv[i], "v")):
+                np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                                           jl["cross"][key], atol=1e-4,
+                                           rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_decode_from_scratch_matches_forward(name):
     """init_cache(pos=0) and decode token by token against the forward
-    (the JAX package's ``test_decode_cache_from_scratch``)."""
-    *_, model = _both(name)
+    (the JAX package's ``test_decode_cache_from_scratch``); a model with
+    cross attention takes its context's K/V from a prefill."""
+    _, jmodel, *_, model = _both(name)
     B, S = 1, 6
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, model.cfg.vocab_size, (B, S)))
+    _, ctx = _ctx(jmodel, B)
     with torch.no_grad():
-        full = model(tokens)
+        full = model(tokens, ctx_embed=ctx)
         cache = model.init_cache(B, 16, pos=0, dtype=torch.float32)
+        if ctx is not None:
+            _, seeded = model.prefill(tokens[:, :1], ctx_embed=ctx)
+            cache.xk, cache.xv = seeded.xk, seeded.xv
         scale = float(full.abs().max())
         for t in range(S):
             lg, cache = model.decode_step(tokens[:, t], cache)

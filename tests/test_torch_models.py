@@ -3,6 +3,9 @@ weights: the JAX parameter tree (made by ``repro.models`` from a seed, then
 perturbed with numpy so biases and norm scales are not trivial) goes to
 both sides as numpy arrays (``models/convert.py``).
 
+A model that takes a context (whisper-small's encoder frames,
+llama-3.2-vision's patches) gets the same numpy context on both sides.
+
 Tolerance: f32 logits within atol 1e-4 / rtol 1e-4.  Both sides compute in
 f32; they differ only in summation order (XLA's dots and KV blocks of 256
 against torch's matmuls and the port's flash tiles)."""
@@ -29,7 +32,10 @@ from repro_torch.models import registry as tmr  # noqa: E402
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
-                                                          n_layers=5)}
+                                                          n_layers=5),
+         "whisper-small-reduced": lambda m: m.reduced("whisper-small"),
+         "llama-3.2-vision-reduced": lambda m: m.reduced(
+             "llama-3.2-vision-11b")}
 
 
 def _f32(cfg):
@@ -54,13 +60,20 @@ def test_forward_matches_jax(name):
     jcfg = _f32(CASES[name](jcr))
     tcfg = _f32(CASES[name](tcr))
     params = _params_np(jcfg)
-    tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 64))
-    jlogits, _ = jmr.build(jcfg).forward(
-        jax.tree.map(jnp.asarray, params), jnp.asarray(tokens))
+    jmodel = jmr.build(jcfg)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, jcfg.vocab_size, (2, 64))
+    ctx = rng.standard_normal((2, jmodel.ctx_len(), jcfg.d_model)).astype(
+        np.float32) if jmodel.needs_ctx() else None
+    jlogits, _ = jmodel.forward(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(tokens),
+        ctx_embed=None if ctx is None else jnp.asarray(ctx))
     model = convert.from_jax_params(params, tcfg, device="cpu")
+    assert model.needs_ctx() == jmodel.needs_ctx()
     fk.flash_attention_kernel.launches = 0
     with torch.no_grad():
-        tlogits = model(torch.from_numpy(tokens))
+        tlogits = model(torch.from_numpy(tokens), ctx_embed=None if ctx is None
+                        else torch.from_numpy(ctx))
     assert fk.flash_attention_kernel.launches == 0       # CPU: plain version
     assert tlogits.shape == jlogits.shape == (2, 64, tL.pad_vocab(
         jcfg.vocab_size))
@@ -112,7 +125,7 @@ def test_bf16_weights_cast_once_match_per_call_cast():
 
 
 def test_unported_block_kinds_raise():
-    for name in ("xlstm-1.3b", "whisper-small", "moonshot-v1-16b-a3b"):
+    for name in ("xlstm-1.3b", "moonshot-v1-16b-a3b"):
         with pytest.raises(NotImplementedError):
             tmr.build(tcr.reduced(name), device="cpu")
 

@@ -1,8 +1,11 @@
 """The port's serving engine and ``serve`` launcher on the CPU, against
 repeated forward passes and against the JAX package's engine on the same
 weights (``convert.from_jax_params``) and the same numpy prompts, at
-``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini`` and the hybrid
-``reduced("recurrentgemma-2b", n_layers=5)`` in f32.
+``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini``, the hybrid
+``reduced("recurrentgemma-2b", n_layers=5)`` and the encoder–decoder
+``reduced("whisper-small")`` in f32.  The engine gives a model that takes
+a context the model's ``make_ctx`` each wave; against the JAX engine both
+``make_ctx``s are patched to one numpy context.
 
 Tolerances: none.  Greedy tokens are argmaxes, compared for equality;
 stats are counts and orderings of host times.  On the CPU the decode step
@@ -32,7 +35,8 @@ from repro_torch.serving.engine import (EngineStats, Request,  # noqa: E402
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
-                                                          n_layers=5)}
+                                                          n_layers=5),
+         "whisper-small-reduced": lambda m: m.reduced("whisper-small")}
 
 
 def _f32(cfg):
@@ -63,19 +67,28 @@ def test_greedy_decode_matches_forward_argmax(name):
     engine = ServingEngine(model, max_batch=1, max_len=64)
     [req] = engine.run([Request(rid=0, prompt=prompt, max_new_tokens=4)])
     toks = list(prompt)
+    ctx = model.make_ctx(1)                 # the engine's context for a wave of 1
     with torch.no_grad():
         for _ in range(4):
-            logits = model(torch.tensor([toks]))
+            logits = model(torch.tensor([toks]), ctx_embed=ctx)
             toks.append(int(logits[0, -1, :model.cfg.vocab_size].argmax()))
     assert req.out_tokens == toks[len(prompt):]
     assert engine.stats.prefills == 1 and engine.stats.decode_steps == 3
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_engine_tokens_equal_the_jax_engine(name):
+def test_engine_tokens_equal_the_jax_engine(name, monkeypatch):
     """Two waves of left-padded prompts of unequal length: the same greedy
-    tokens as the JAX engine on the same weights."""
+    tokens as the JAX engine on the same weights (and, for a model that
+    takes one, the same context: the first rows of one numpy array)."""
     jmodel, jparams, model = _both(name)
+    if model.needs_ctx():
+        ctx = np.random.default_rng(5).standard_normal(
+            (3, model.ctx_len(), model.cfg.d_model)).astype(np.float32)
+        monkeypatch.setattr(type(jmodel), "make_ctx",
+                            lambda self, key, batch: jnp.asarray(ctx[:batch]))
+        monkeypatch.setattr(model, "make_ctx",
+                            lambda batch: torch.from_numpy(ctx[:batch]))
     vocab = model.cfg.vocab_size
     prompts = [p[:n] for p, n in zip(_prompts(5, 9, 2, vocab),
                                      (9, 6, 9, 4, 7))]
