@@ -36,7 +36,16 @@ and cross attention through the flash kernel), float32 and bf16, its
 forward measured, split and predicted, its encoder on the card held
 against the CPU's (with a causal encoder planted, which must fail), decode
 steps held against the forward (with cross caches from a foreign context
-planted, which must fail), and the ``serve`` launcher's engine.  Every
+planted, which must fail), and the ``serve`` launcher's engine.  Then the
+MoE path: moonshot-v1-16b-a3b at full width (64 experts top-6 through
+capacity dispatch, flash at hd 128), bf16 at full depth and float32 at a
+cut depth, and llama4-scout-17b-16e (top-1 of 16, GQA group 5) in bf16 at
+a cut depth, each forward measured, split and predicted with the share of
+pairs capacity drops, decode steps held against the forward at a
+capacity that drops nothing with the routing held to the forward's (each
+gate on the next expert down, in every layer and in the middle layer,
+planted, which must fail; freely routed steps, eager and as a CUDA
+graph, reported), and the ``serve`` launcher's engine.  Every
 phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
@@ -87,8 +96,10 @@ from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
-from repro_torch.models.transformer import Transformer  # noqa: E402
+from repro_torch.models.transformer import (Transformer,  # noqa: E402
+                                             cast_weights_)
 from repro_torch.serving.engine import (DecodeGraph, Request,  # noqa: E402
                                         ServingEngine)
 from repro_torch.serving.latency_service import LatencyService  # noqa: E402
@@ -226,6 +237,40 @@ ENCDEC_SERVE_ARGS = ["--arch", ENCDEC, "--requests", "8", "--prompt-len",
                      "64", "--max-new", "32", "--max-batch", "4",
                      "--temperature", "0", "--compute-dtype", "bfloat16",
                      "--seed", "0"]
+# The MoE phase: moonshot-v1-16b-a3b (48 layers, d 2048, 16 heads of 128
+# over 16 KV heads, 64 experts of d_ff 1408 top-6 and 2 shared, vocab
+# 163,840; 28.9 B parameters) and llama4-scout-17b-16e (d 5120, 40 heads of
+# 128 over 8, 16 experts of d_ff 8192 top-1 and 1 shared, vocab 202,048),
+# each built from seed 0 on the card and freed before the next, at
+# MOE_RUNS' (dtype, layers): moonshot in bf16 at full depth (57.8 GB,
+# drawn and cast one part at a time: ``build(dtype=)``) and in float32 at
+# 24 of 48 layers (59.1 GB; 48 would be 115.6 GB), llama4-scout in bf16 at
+# 12 of 48 (57.0 GB; 48 would be 215.5 GB).  The forward is measured at
+# MOE_FORWARD at the configs' capacity factor 1.25.  The decode check
+# prefills MOE_PROMPT tokens at batch MOE_BATCH and capacity MOE_PROMPT +
+# MOE_STEPS and takes MOE_STEPS steps, each held against the forward over
+# the whole sequence at ``moe_step_tol`` with the routing held to the
+# forward's, at a capacity factor that drops nothing (``moe_no_drop``);
+# the freely routed steps, eagerly and as a CUDA graph, are reported; the
+# serving engine runs the launcher's MOE_SERVE_ARGS (moonshot at full
+# depth, two waves of 4, capacity 1.25: the engine and ``check_served``
+# prefill the same waves, so both drop alike).
+MOE, MOE_SCOUT = "moonshot-v1-16b-a3b", "llama4-scout-17b-16e"
+MOE_RUNS = ((MOE, "bfloat16", 48), (MOE, "float32", 24),
+            (MOE_SCOUT, "bfloat16", 12))
+MOE_FORWARD = (8, 512)
+MOE_BATCH, MOE_PROMPT, MOE_STEPS = 8, 64, 32
+# The decode check's logits limit (``moe_step_tol``): DECODE_TOL at 24
+# layers or fewer (it was set at qwen2-0.5b's 24).  Deeper, in bf16, the
+# JAX package's own step error at that depth with the routing held to its
+# forward's: MOE_REF_STEP_ERR[layers], the largest over seeds 0-7 of
+# reduced moonshot-v1-16b-a3b (``scripts/moe_forced_drift.py``, on the
+# CPU), rounded up to two digits.
+MOE_TOL_LAYERS = 24
+MOE_REF_STEP_ERR = {48: 6.9e-2}
+MOE_SERVE_ARGS = ["--arch", MOE, "--requests", "8", "--prompt-len", "64",
+                  "--max-new", "32", "--max-batch", "4", "--temperature",
+                  "0", "--compute-dtype", "bfloat16", "--seed", "0"]
 
 
 def emit(phase: str, **fields):
@@ -530,6 +575,25 @@ def encdec_path_cases():
             + [(B, S, S, *heads, True, None, None) for B, S in shapes])
 
 
+def moe_path_cases():
+    """The flash calls of the MoE path, causal at hd 128: moonshot's 16
+    heads over 16 KV heads and llama4-scout's 40 over 8 (GQA group 5), at
+    each (B, S) the path runs: the forward MOE_FORWARD, the decode check's
+    prefill and forward, and (moonshot) the serving engine's prefill
+    (``check_served``'s too)."""
+    serve = serve_launcher.parse_args(MOE_SERVE_ARGS)
+    shapes = {MOE_FORWARD, (MOE_BATCH, MOE_PROMPT),
+              (MOE_BATCH, MOE_PROMPT + MOE_STEPS)}
+    out = []
+    for arch in (MOE, MOE_SCOUT):
+        c = cfg_registry.get(arch)
+        run = shapes | ({(serve.max_batch, serve.prompt_len)}
+                        if arch == MOE else set())
+        out += [(B, S, S, c.n_heads, c.n_kv_heads, c.head_dim, True, None,
+                 None) for B, S in sorted(run)]
+    return out
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), every config
@@ -539,9 +603,9 @@ def check_flash(dtypes):
     stride (the second load path) are added; then the decode and serve
     paths' shapes (``decode_path_cases``), the grid path's
     (``grid_path_cases``), the schedule path's (``schedule_path_cases``),
-    the hybrid path's (``hybrid_path_cases``) and the encoder–decoder
+    the hybrid path's (``hybrid_path_cases``), the encoder–decoder
     path's (``encdec_path_cases``: non-causal over 1,500 keys, ragged
-    against both tiles)."""
+    against both tiles) and the MoE path's (``moe_path_cases``: hd 128)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -563,7 +627,7 @@ def check_flash(dtypes):
         (1, 77, 77, 2, 2, 256, False, None, None),
         (1, 150, 201, 4, 2, 256, True, None, "offset"),
     ] + decode_path_cases() + grid_path_cases() + schedule_path_cases() \
-        + hybrid_path_cases() + encdec_path_cases()
+        + hybrid_path_cases() + encdec_path_cases() + moe_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -709,7 +773,7 @@ def phase_model(store):
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
         model.cfg = cfg
         if dname == "bfloat16":
-            model.cast_weights_(torch.bfloat16)   # once, before timing
+            cast_weights_(model, torch.bfloat16)   # once, before timing
         with torch.no_grad():
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -786,6 +850,8 @@ def device_rows(prof):
 # the hand flash kernel's instances by name
 GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma|splitKreduce", re.IGNORECASE)
 FLASH_KERNEL = re.compile(r"fa_wgmma_kernel|fa_fwd_kernel")
+# the MoE routing's top-k (radix select) and cumsum (scan) kernels by name
+ROUTING_KERNEL = re.compile(r"topk|kth|scan", re.IGNORECASE)
 
 
 def forward_trace(fn, *args):
@@ -795,7 +861,9 @@ def forward_trace(fn, *args):
     host sets the pace.  Under ``torch.profiler``: the device's busy time,
     the part of it in cuBLAS GEMM/GEMV kernels (``GEMM_KERNEL``), its idle
     share of that span, the part of it in the hand flash kernel
-    (``FLASH_KERNEL``), and the 10 kernels that take the most time."""
+    (``FLASH_KERNEL``), the part in top-k and cumsum kernels
+    (``ROUTING_KERNEL``: MoE routing), and the 10 kernels that take the
+    most time."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -818,6 +886,8 @@ def forward_trace(fn, *args):
                            if GEMM_KERNEL.search(name)),
             "flash_ms": sum(t for name, (_, t) in rows.items()
                             if FLASH_KERNEL.search(name)),
+            "topk_scan_ms": sum(t for name, (_, t) in rows.items()
+                                if ROUTING_KERNEL.search(name)),
             "idle_share": (1 - busy / span) if busy else None,
             "kernel_launches": sum(c for c, _ in rows.values()),
             "top10": [[name[:90], c, t] for name, (c, t) in top]}
@@ -863,7 +933,7 @@ def phase_decode(store):
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
         model.cfg = cfg
         if dname == "bfloat16":
-            model.cast_weights_(torch.bfloat16)
+            cast_weights_(model, torch.bfloat16)
         weight_bytes = sum(p.nbytes for p in model.parameters())
         for ctx in DECODE_CTXS:
             tokens = torch.randint(0, cfg.vocab_size, (BATCH, ctx),
@@ -1167,7 +1237,7 @@ def grid_measure(cfg0, engines):
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
         model.cfg = cfg
         if dname == "bfloat16":
-            model.cast_weights_(torch.bfloat16)
+            cast_weights_(model, torch.bfloat16)
         grid, dgrid = engines[dname][1]
         for b, s in GRID_MEASURED:
             tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
@@ -1559,7 +1629,7 @@ def schedule_measure(cfg0, engines):
         cdt = getattr(torch, dname)
         model.cfg = cfg
         if dname == "bfloat16":
-            model.cast_weights_(torch.bfloat16)
+            cast_weights_(model, torch.bfloat16)
         pm, bp = engines[dname]
         sw = bp.sweep_strategies(cfg, BATCH, SEQ, [
             og.ParallelismSpec(microbatches=m) for m in SCHED_MB],
@@ -2011,8 +2081,8 @@ def service_admission(svc, cfg0):
                  if grid[k - 1] <= slo] or [1])
         want.append(k)
         left -= k
-    model = model_registry.build(cfg, device="cuda", seed=0)
-    model.cast_weights_(torch.bfloat16)
+    model = model_registry.build(cfg, device="cuda", seed=0,
+                                 dtype=torch.bfloat16)
     engine = ServingEngine(model, max_batch=SERVICE_CAPACITY,
                            max_len=ctx + 8, admission_oracle=oracle,
                            slo_tpot=slo)
@@ -2107,9 +2177,8 @@ def phase_hybrid(store):
     for dname in DTYPES:
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
-        model = model_registry.build(cfg, device="cuda", seed=0)
-        if dname != "float32":
-            model.cast_weights_(getattr(torch, dname))
+        model = model_registry.build(cfg, device="cuda", seed=0,
+                                     dtype=getattr(torch, dname))
         with torch.no_grad():
             for B, S in HYBRID_FORWARDS:
                 tokens = torch.randint(0, cfg.vocab_size, (B, S),
@@ -2361,9 +2430,8 @@ def phase_encdec(store):
     for dname in DTYPES:
         torch.cuda.empty_cache()
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
-        model = model_registry.build(cfg, device="cuda", seed=0)
-        if dname != "float32":
-            model.cast_weights_(getattr(torch, dname))
+        model = model_registry.build(cfg, device="cuda", seed=0,
+                                     dtype=getattr(torch, dname))
         with torch.no_grad():
             if dname == "float32":
                 encoder = encdec_encoder(model)
@@ -2621,6 +2689,446 @@ def encdec_serve(pm):
     return rec
 
 
+def phase_moe(store):
+    """The MoE path: moonshot-v1-16b-a3b and llama4-scout-17b-16e at full
+    width, at MOE_RUNS' dtypes and depths, each built from seed 0 on the
+    card and freed before the next.  (b, c, e) the forward at MOE_FORWARD:
+    finite logits, one flash launch a layer, all at hd 128, its time and
+    trace against ``predict_model``, its per-layer split, and the share of
+    (token, choice) pairs capacity 1.25 drops in each layer
+    (``moe_forward``); (d) decode steps against the forward at a capacity
+    that drops nothing with the routing held to the forward's, a step
+    with each gate on the next expert down (in every layer, and in the
+    middle layer), which must fail, and freely routed steps, eager and
+    graph (``moe_decode``);
+    (f) the launcher's bf16 engine on moonshot at full depth, every token
+    held against eager steps (``moe_serve``).  The flash kernel is held
+    against its plain version at this path's shapes by ``check_flash``
+    ((a), ``moe_path_cases``) and timed at moonshot's (8, 512) in the
+    ``kernels`` line ((g), ``hd128``).  Fails if a check of (b)-(f)
+    fails."""
+    t0 = time.perf_counter()
+    pm = PM2Lat(store, store.meta["device"])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    builds, forwards, decodes = [], [], []
+    for arch, dname, n_layers in MOE_RUNS:
+        torch.cuda.empty_cache()
+        full = cfg_registry.get(arch)
+        cfg = dataclasses.replace(full, compute_dtype=dname, n_layers=n_layers)
+        dt = getattr(torch, dname)
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        model = model_registry.build(cfg, device="cuda", seed=0, dtype=dt)
+        torch.cuda.synchronize()
+        builds.append({"arch": arch, "dtype": dname, "n_layers": n_layers,
+                       "full_layers": full.n_layers,
+                       "build_s": time.perf_counter() - t_build,
+                       "weight_bytes": sum(p.nbytes
+                                           for p in model.parameters()),
+                       "build_peak_bytes": torch.cuda.max_memory_allocated()})
+        emit("moe_build", **builds[-1])
+        with torch.no_grad():
+            tokens = torch.randint(0, cfg.vocab_size, MOE_FORWARD,
+                                   generator=gen, device="cuda")
+            forwards.append(moe_forward(model, pm, cfg, tokens))
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (MOE_BATCH, MOE_PROMPT + MOE_STEPS),
+                                   generator=gen, device="cuda")
+            decodes.append(moe_decode(model, pm, cfg, tokens))
+        del model
+    torch.cuda.empty_cache()
+    served = moe_serve(pm)
+    torch.cuda.empty_cache()
+    rec = {"builds": builds, "forwards": forwards, "decodes": decodes,
+           "serve": served, "seconds": time.perf_counter() - t0}
+    emit("moe", seconds=rec["seconds"])
+    bad = [f"forward {r['arch']} {r['dtype']}: {r['failed']}"
+           for r in forwards if r["failed"]]
+    bad += [f"decode {r['arch']} {r['dtype']}: {r['failed']}"
+            for r in decodes if r["failed"]]
+    bad += [f"serve: {served['failed']}"] if served["failed"] else []
+    if bad:
+        raise AssertionError(f"moe: {bad}")
+    return rec
+
+
+def moe_no_drop(cfg):
+    """``cfg`` at a capacity factor that drops nothing: E / top_k + 1, as
+    ``reduced()`` sets it, so that every expert's capacity is at least a
+    group's tokens.  At 1.25 a forward over MOE_PROMPT + MOE_STEPS tokens
+    a row drops late pairs that a one-token decode group (capacity
+    max(top_k, 4) >= top_k) never drops, so a sound port would miss a
+    decode-against-forward check there."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k + 1.0))
+
+
+class MoeRouting:
+    """Within the block: each MoE layer's routing in the calls made (one
+    group a batch row, the default grouping), from its input at the
+    capacity it is called with: ``shares``, the share of (token, choice)
+    pairs ``_top_k_routing`` drops, a float a layer and call; ``ranked``,
+    the top_k + 1 experts of highest probability, in descending order,
+    (B, S, top_k + 1), a tensor a layer and call.  Both are read after
+    the block."""
+
+    def __init__(self, model):
+        self.model, self.kept, self.ranked = model, [], []
+
+    def hook(self, mod, args):
+        x, moe = args[0], args[1]
+        probs = torch.softmax(mod.router(x.float()), dim=-1)
+        cap = moe_mod.expert_capacity(x.shape[1], moe)
+        self.kept.append(moe_mod._top_k_routing(probs, moe, cap)[2]
+                         .float().mean())
+        self.ranked.append(torch.topk(
+            probs, min(moe.top_k + 1, moe.num_experts), dim=-1).indices)
+
+    def __enter__(self):
+        self.handles = [blk.moe.register_forward_pre_hook(self.hook)
+                        for blk in self.model.blocks]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.shares = [1.0 - float(k) for k in self.kept]
+
+
+class ForcedRouting:
+    """Within the block, the MoE layers' routing (``moe_mod._top_k``) is
+    held to ``routing`` (a ``MoeRouting`` of the forward over the whole
+    sequence): each model call ``forced(pos, run)`` runs ``run()``
+    with every layer choosing the experts the forward ranked at positions
+    ``pos``, ``shift`` ranks down in the layers ``shifted`` (all by
+    default; shift 1 is a planted fault: each gate weighs the next expert
+    down), their gates the caller's own probabilities renormalised.  A
+    forward pre-hook on each layer's ``moe`` names the layer; a call that
+    does not route every layer exactly once, in order, raises.
+    ``differ``: the (layer, row, position) where the caller's own top-k
+    would have chosen other experts."""
+
+    def __init__(self, model, routing, shift=0, shifted=None):
+        self.model, self.ranked, self.shift = model, routing.ranked, shift
+        self.L = len(model.blocks)
+        self.shifted = set(range(self.L) if shifted is None else shifted)
+        self.entered, self.routed, self.found = [], [], []
+
+    def top_k(self, probs, moe):
+        i = self.entered[-1]
+        self.routed.append(i)
+        s = self.shift if i in self.shifted else 0
+        want = self.ranked[i][:, self.pos, s:s + moe.top_k]
+        own = self.orig(probs, moe)[1]
+        self.found.append((own.sort(-1).values != want.sort(-1).values)
+                          .any(-1).sum())
+        return moe_mod._renormalise(probs.gather(-1, want)), want
+
+    def __call__(self, pos, run):
+        self.pos, self.entered, self.routed = pos, [], []
+        out = run()
+        if not self.entered == self.routed == list(range(self.L)):
+            raise AssertionError(f"forced routing: layers entered "
+                                 f"{self.entered}, routed {self.routed}")
+        return out
+
+    def __enter__(self):
+        self.handles = [blk.moe.register_forward_pre_hook(
+            lambda mod, args, i=i: self.entered.append(i))
+            for i, blk in enumerate(self.model.blocks)]
+        self.orig, moe_mod._top_k = moe_mod._top_k, self.top_k
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._top_k = self.orig
+        for h in self.handles:
+            h.remove()
+        self.differ = int(sum(int(f) for f in self.found))
+
+
+def moe_forward(model, pm, cfg, tokens):
+    """(b, c, e) One forward at (B, S) = ``tokens.shape``: finite logits
+    of the padded vocab, one flash launch a layer, every one at hd 128;
+    the share of pairs each layer drops at capacity 1.25 (a reported
+    number, not a check); its time (CUDA events, ``profiler.measure``),
+    its trace (GEMM, flash, top-k and cumsum kernels, idle share) and the
+    first layer's MoE stages timed alone (``moe_split``), against
+    ``predict_model`` (by op)."""
+    B, S = tokens.shape
+    dname = cfg.compute_dtype
+    fa = fk.flash_attention_kernel
+    before = fa.launches, fa.launches_by_hd.get(128, 0)
+    with MoeRouting(model) as drops:
+        logits = model(tokens)
+    torch.cuda.synchronize()
+    flash, hd128 = fa.launches - before[0], fa.launches_by_hd.get(128, 0) \
+        - before[1]
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    measured = profiler.measure(model, tokens)
+    trace = forward_trace(model, tokens)
+    split = moe_split(model, cfg, tokens)
+    total, rows = pm.predict_model(cfg, B, S, dtype=dname)
+    by_op = {}
+    for r in rows:
+        op = r.name.split(".")[1] if "." in r.name else r.name
+        by_op[op] = by_op.get(op, 0.0) + r.seconds * 1e3
+    failed = [] if finite else ["logits not finite"]
+    failed += [] if shape == [B, S, model.padded_vocab] else [f"shape {shape}"]
+    failed += [] if flash == hd128 == cfg.n_layers else [
+        f"{flash} flash launches, {hd128} at hd 128, expected {cfg.n_layers}"]
+    rec = {"arch": cfg.name, "dtype": dname, "batch": B, "seq": S,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "experts": [cfg.moe.num_experts, cfg.moe.top_k,
+                       cfg.moe.num_shared_experts],
+           "capacity_factor": cfg.moe.capacity_factor,
+           "capacity": moe_mod.expert_capacity(S, cfg.moe),
+           "logits_shape": shape, "logits_finite": finite,
+           "flash_launches_per_forward": flash, "flash_hd128": hd128,
+           "dropped_share_by_layer": drops.shares,
+           "dropped_share": float(np.mean(drops.shares)),
+           "measured_ms": measured * 1e3, "predicted_ms": total * 1e3,
+           "err_pct": 100 * abs(total - measured) / measured,
+           "predicted_ms_by_op": by_op, "split": split,
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "device_trace": trace, "failed": failed}
+    emit("moe_forward", **rec)
+    return rec
+
+
+def moe_split(model, cfg, tokens):
+    """The first layer's MoE at this forward's input, each stage timed
+    alone (``timed``: CUDA events, and device time where the profiler
+    shows it), a layer's worth of the forward's: the router and softmax;
+    the routing (top-k, the one-hot comparisons, the cumsum positions:
+    ``_top_k_mask``); the dispatch product; the experts' three products
+    and activation (``_experts``); the combine product; the shared
+    experts.  Beside them, the forward's device busy time is the
+    whole."""
+    moe, m = model.blocks[0].moe, cfg.moe
+    cdt = getattr(torch, cfg.compute_dtype)
+    got = []
+    handle = moe.register_forward_pre_hook(
+        lambda mod, args: got.append(args[0]))
+    try:
+        model.blocks[0](model.embed(tokens, cdt), cfg, cdt)
+    finally:
+        handle.remove()
+    x = got[0]
+    G, S, d = x.shape
+    cap = moe_mod.expert_capacity(S, m)
+    probs = torch.softmax(moe.router(x.float()), dim=-1)
+    dispatch, combine = moe_mod._top_k_mask(probs, m, cap)
+    disp = dispatch.to(cdt).reshape(G, S, -1)
+    xe = torch.bmm(disp.transpose(1, 2), x).view(G, m.num_experts, cap, d)
+    ye = moe_mod._experts(moe, xe, cfg.mlp_act)
+    comb = combine.to(cdt).reshape(G, S, -1)
+    ye_flat = ye.reshape(G, -1, d)
+    stages = {
+        "router": lambda: torch.softmax(moe.router(x.float()), dim=-1),
+        "routing": lambda: moe_mod._top_k_mask(probs, m, cap),
+        "dispatch": lambda: torch.bmm(disp.transpose(1, 2), x),
+        "experts": lambda: moe_mod._experts(moe, xe, cfg.mlp_act),
+        "combine": lambda: torch.bmm(comb, ye_flat),
+        "shared": lambda: [getattr(moe, f"shared{i}")(x, cdt)
+                           for i in range(m.num_shared_experts)]}
+    return {name: {**timed(fn), "n_layers": cfg.n_layers}
+            for name, fn in stages.items()}
+
+
+def moe_decode(model, pm, cfg, tokens):
+    """(d) At the no-drop capacity (``moe_no_drop``), against the forward
+    over all the tokens (max |d| / max |logits| at each position).
+    Routing is discontinuous: rounding that differs between two paths
+    tips near ties to other experts, and a tipped choice moves a token's
+    output far past DECODE_TOL (the JAX package's own bf16 steps do so at
+    reduced width).  So the decode path is held with its routing held to
+    the forward's (``ForcedRouting``): prefill MOE_PROMPT tokens at
+    capacity MOE_PROMPT + MOE_STEPS and take MOE_STEPS eager steps, the
+    prefill's and each step's logits within ``moe_step_tol`` (DECODE_TOL,
+    or past 24 bf16 layers the JAX package's own step error at that
+    depth).  The planted faults, the first step with each gate on the
+    next expert down in every layer, and in the middle layer only, must
+    miss it; the same fault in each one layer in turn is reported, with
+    how many of them the limit sees.
+    The engine's path, routing freely, runs the same prefill and steps
+    eagerly and as a replayed CUDA graph, which must equal the eager steps
+    bit for bit; their logits errors and the routing decisions that differ
+    from the forward's (``routing_flips``) are reported.  Also: the
+    forward drops no pair, the cache holds ``kv_cache_bytes``, no hand
+    kernel launches in a step.  Times both steps; the graph's is the one
+    predicted."""
+    run_cfg, model.cfg = model.cfg, moe_no_drop(cfg)
+    try:
+        return moe_decode_steps(model, pm, model.cfg, tokens)
+    finally:
+        model.cfg = run_cfg
+
+
+def moe_step_tol(cfg) -> float:
+    """The decode check's logits limit for ``cfg`` (MOE_REF_STEP_ERR)."""
+    if cfg.compute_dtype == "float32" or cfg.n_layers <= MOE_TOL_LAYERS:
+        return DECODE_TOL[cfg.compute_dtype]
+    return MOE_REF_STEP_ERR[cfg.n_layers]
+
+
+def moe_decode_steps(model, pm, cfg, tokens):
+    """``moe_decode``'s checks, with ``model.cfg`` = ``cfg``."""
+    dname = cfg.compute_dtype
+    B, T = tokens.shape
+    P, n, L = MOE_PROMPT, T - MOE_PROMPT, cfg.n_layers
+    with MoeRouting(model) as fwd:
+        want = model(tokens)[:, P - 1:].float().clone()
+    scale = want.abs().max()
+    rel = lambda x, t: float((x.float() - want[:, t]).abs().max() / scale)
+    with ForcedRouting(model, fwd) as forced:
+        last, cache = forced(slice(0, P), lambda: model.prefill(
+            tokens[:, :P], max_len=T))
+        prefill_err = rel(last, 0)
+        start = cache.clone()
+        errs = []
+        for t in range(n):
+            logits, _ = forced(slice(P + t, P + t + 1),
+                               lambda: model.decode_step(tokens[:, P + t],
+                                                         cache))
+            errs.append(rel(logits, t + 1))
+
+    def shifted(layers):
+        with ForcedRouting(model, fwd, shift=1, shifted=layers) as planted:
+            wrong, _ = planted(slice(P, P + 1), lambda: model.decode_step(
+                tokens[:, P], start.clone()))
+        return rel(wrong, 1)
+    fault_err = shifted(None)
+    layer_faults = [shifted({i}) for i in range(L)]
+    # the engine's path: routing freely, eager and as a CUDA graph
+    free_last, cache = model.prefill(tokens[:, :P], max_len=T)
+    free_prefill_err = rel(free_last, 0)
+    kv = og.kv_cache_bytes(cfg, B, T, dname)
+    start = cache.clone()
+    before = hand_launches()
+    eager, free_errs = [], []
+    with MoeRouting(model) as steps:
+        for t in range(n):
+            logits, _ = model.decode_step(tokens[:, P + t], cache)
+            eager.append(logits.clone())
+            free_errs.append(rel(logits, t + 1))
+    chosen = lambda r: r[..., :cfg.moe.top_k].sort(-1).values
+    flips = sum(int((chosen(steps.ranked[t * L + i][:, 0])
+                     != chosen(fwd.ranked[i][:, P + t])).any(-1).sum())
+                for t in range(n) for i in range(L))
+    graph = DecodeGraph(model, start).load(start)
+    graph_errs, bitwise = [], True
+    for t in range(n):
+        logits = graph(tokens[:, P + t])
+        graph_errs.append(rel(logits, t + 1))
+        bitwise = bitwise and bool(torch.equal(logits, eager[t]))
+    in_step = launches_since(before)
+    tok = tokens[:, T - 1].contiguous()
+
+    def eager_step():
+        cache.pos.fill_(T - 1)
+        return model.decode_step(tok, cache)
+
+    def graph_step():
+        graph.cache.pos.fill_(T - 1)
+        return graph(tok)
+
+    eager_s, graph_s = profiler.measure(eager_step), profiler.measure(graph_step)
+    graph_trace = forward_trace(graph_step)
+    predicted, rows = pm.predict_ops(og.enumerate_decode_ops(
+        cfg, B, T, dtype=dname))
+    by_kind = {}
+    for r in rows:
+        by_kind[r.kind] = by_kind.get(r.kind, 0.0) + r.seconds * 1e3
+    weight_bytes = sum(p.nbytes for p in model.parameters())
+    floor = (weight_bytes + kv) / H100_SXM.hbm_bw * 1e3
+    tol = moe_step_tol(cfg)
+    checks = {"prefill_logits_ok": prefill_err <= tol,
+              "logits_ok": max(errs) <= tol,
+              "graph_bitwise": bitwise,
+              "no_pair_dropped": max(fwd.shares) == 0.0,
+              "planted_fault_caught": fault_err > tol,
+              "planted_mid_layer_fault_caught": layer_faults[L // 2] > tol,
+              "cache_bytes_ok": cache.nbytes == kv,
+              "no_hand_launch_in_step": not in_step}
+    rec = {"arch": cfg.name, "dtype": dname, "n_layers": cfg.n_layers,
+           "batch": B, "prompt": P, "steps": n, "capacity": cache.capacity,
+           "capacity_factor": cfg.moe.capacity_factor,
+           "forward_capacity": moe_mod.expert_capacity(T, cfg.moe),
+           "step_capacity": moe_mod.expert_capacity(1, cfg.moe),
+           "prefill_logits_rel_err": prefill_err,
+           "logits_rel_err": max(errs), "logits_rel_err_by_step": errs,
+           "logits_tol": tol, "planted_fault_rel_err": fault_err,
+           "one_layer_fault_rel_err_by_layer": layer_faults,
+           "one_layer_faults_caught": sum(e > tol for e in layer_faults),
+           "forced_own_choice_differs": forced.differ,
+           "free_prefill_logits_rel_err": free_prefill_err,
+           "free_logits_rel_err": max(free_errs),
+           "free_graph_logits_rel_err": max(graph_errs),
+           "free_logits_rel_err_by_step": free_errs,
+           "routing_flips": flips, "routing_decisions": n * L * B,
+           "hand_launches_in_step": in_step,
+           "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
+           "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
+           "weight_bytes": weight_bytes, "bytes_floor_ms": floor,
+           "predicted_step_ms": predicted * 1e3,
+           "predicted_ms_by_kind": by_kind,
+           "err_pct": 100 * abs(predicted - graph_s) / graph_s,
+           "graph_trace": graph_trace, "checks": checks,
+           "failed": [k for k, ok in checks.items() if not ok]}
+    emit("moe_decode", **rec)
+    return rec
+
+
+def moe_serve(pm):
+    """(f) The ``serve`` launcher's engine at MOE_SERVE_ARGS: moonshot at
+    full depth in bf16 (built in its dtype), 8 prompts of 64 tokens, 32
+    new each, in two waves of 4, greedy.  Fails unless every request ends
+    with its 32 tokens, the flash kernel launched once a layer a wave (the
+    prefill's), all at hd 128, and every served token equals eager steps'
+    (``check_served``, run after the launches are read).  Prices the
+    prompt and the decode steps over the contexts they ran at."""
+    args = serve_launcher.parse_args(MOE_SERVE_ARGS)
+    cfg = dataclasses.replace(cfg_registry.get(MOE),
+                              compute_dtype=args.compute_dtype)
+    before = hand_launches()
+    engine, done = serve_launcher.serve(args)
+    since = launches_since(before)
+    flash = since.get("flash_attention", 0)
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    st = engine.stats
+    want_flash = cfg.n_layers * -(-args.requests // args.max_batch)
+    failed = [] if sorted({len(r.out_tokens) for r in done}) == [
+        args.max_new] else ["tokens each"]
+    failed += [] if flash == since.get("flash_attention@hd128", 0) \
+        == want_flash else [f"{flash} flash launches, expected {want_flash}"
+                            f" at hd 128"]
+    failed += [f"requests unlike the eager steps {served['mismatched']}"] \
+        if served["mismatched"] else []
+    rec = {**out, "requests": len(done), "prefills": st.prefills,
+           "capacity": engine.max_len,
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+           "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+           "flash_launches": flash, "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "wall_s": engine.wall_s, "failed": failed}
+    emit("moe_serve", **rec)
+    del engine
+    return rec
+
+
 def bound(nbytes, flops, dname="bfloat16"):
     """(the least ms the card could take to move ``nbytes`` and do
     ``flops`` in ``dname``, which of the two bounds it)."""
@@ -2651,7 +3159,9 @@ def kernel_lines(by_path, mm_pick):
     hd-256 instances at the hybrid path's shapes and their launches on each
     path; its ``encdec`` the same for whisper-small's non-causal calls,
     the encoder's (8, 1500) and the cross attention's (8, 448 x 1500), and
-    the non-causal launches on each path (``flash_case``).  ``by_path``: each path's
+    the non-causal launches on each path (``flash_case``); its ``hd128``
+    the same for moonshot-v1-16b-a3b's (8, 512), 16 heads of 128, causal,
+    and the hd-128 launches on each path.  ``by_path``: each path's
     ``hand_launches``; ``launches`` is the main path's.  Every number here
     is measured, but ``bound_ms``."""
     launches = by_path["main"]
@@ -2686,8 +3196,9 @@ def kernel_lines(by_path, mm_pick):
     def flash_case(arch, B, Sq, Skv, dt, causal, window=None):
         """One flash call as model ``arch`` makes it: (B, Sq) queries of
         its heads over Skv keys in ``dt``, in the config ``select_config``
-        picks.  Bounds count the pairs the masks keep (a causal window's
-        ``window_pairs`` of a square; every pair without a mask); the
+        picks.  Bounds count the pairs the masks keep (a causal square's
+        ``window_pairs``, its window or the whole square; every pair
+        without a mask); the
         library call is SDPA over KV heads repeated to the query heads,
         with a window as a boolean mask where it masks (Sq > window),
         causal or not as the call."""
@@ -2705,7 +3216,7 @@ def kernel_lines(by_path, mm_pick):
                                                               **kw)
         row, = each_config([fcfg], run, plain,
                            flash_tol(*args, fcfg, dname, kw), args)
-        pairs = window_pairs(Sq, window) if window else Sq * Skv
+        pairs = window_pairs(Sq, window or Sq) if causal else Sq * Skv
         bms, by = bound(args[0].element_size() * 2 * (args[0].numel()
                                                       + args[1].numel()),
                         4.0 * B * Hq * hd * pairs, dname)
@@ -2832,7 +3343,11 @@ def kernel_lines(by_path, mm_pick):
             p: n.get("flash_attention@noncausal", 0)
             for p, n in by_path.items()},
             "cases": [flash_case(ENCDEC, B, Sq, L, dt, False)
-                      for dt in (bf, f32) for B, Sq, L in encdec_timed()]}})
+                      for dt in (bf, f32) for B, Sq, L in encdec_timed()]},
+        "hd128": {"launches_by_path": {p: n.get("flash_attention@hd128", 0)
+                                       for p, n in by_path.items()},
+                  "cases": [flash_case(MOE, *MOE_FORWARD, MOE_FORWARD[1], dt,
+                                       True) for dt in (bf, f32)]}})
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
@@ -2841,7 +3356,7 @@ def kernel_lines(by_path, mm_pick):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
-    for key in ("hd256", "encdec"):
+    for key in ("hd256", "encdec", "hd128"):
         cases = lines[-1][key]["cases"]
         if not all(c["ok"] for c in cases):
             raise AssertionError(f"flash {key} cases: max errs "
@@ -2978,12 +3493,19 @@ def main() -> int:
     reset_launches()
     encdec = phase_encdec(store)
     by_path["encdec"] = hand_launches()
+    reset_launches()
+    moe = phase_moe(store)
+    by_path["moe"] = hand_launches()
     emit("path_launches", **by_path)
     for path in ("decode", "serve", "grid", "schedule", "service", "hybrid",
-                 "encdec"):
+                 "encdec", "moe"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
+    moe_flash = by_path["moe"]
+    if moe_flash.get("flash_attention@hd128") != moe_flash["flash_attention"]:
+        raise AssertionError(f"the moe path's flash launches are not all at "
+                             f"hd 128: {moe_flash}")
 
     m, n, _ = MM_SHAPE
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
@@ -2995,7 +3517,7 @@ def main() -> int:
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
-                  encdec=encdec, kernels=kernels,
+                  encdec=encdec, moe=moe, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

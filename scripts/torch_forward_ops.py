@@ -40,6 +40,7 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
+from repro_torch.models.transformer import cast_weights_  # noqa: E402
 
 MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
@@ -133,7 +134,7 @@ def main() -> int:
     for dname in ("float32", "bfloat16"):
         model.cfg = dataclasses.replace(cfg0, compute_dtype=dname)
         if dname == "bfloat16":
-            model.cast_weights_(torch.bfloat16)
+            cast_weights_(model, torch.bfloat16)
         out = {form: {"ms": []} for form in FORMS}
         with torch.no_grad():
             logits = {}

@@ -10,9 +10,10 @@ package's ``launch/serve.py``, plus ``--device``).
 Runs on the card unless ``--device cpu``; weights are random from
 ``--seed``.  A model that takes a context (whisper-small's 1,500 stub
 frames, llama-3.2-vision's patches) gets the engine's stub context each
-wave.  Outside float32 the weights are cast to the compute dtype
-once, before serving (``Transformer.cast_weights_``: the values the
-per-call cast gives).
+wave.  The weights are stored in the compute dtype, drawn and cast one
+part at a time (``models.registry.build(dtype=)``:
+the values the per-call cast gives), so moonshot-v1-16b-a3b's 57.8 GB of
+bf16 weights are built on one 80 GB card.
 """
 from __future__ import annotations
 
@@ -32,9 +33,8 @@ def serve(args):
     (engine, finished requests)."""
     cfg = cr.reduced(args.arch) if args.reduced else cr.get_any(args.arch)
     cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
-    model = mr.build(cfg, device=args.device, seed=args.seed)
-    if args.compute_dtype != "float32":
-        model.cast_weights_(getattr(torch, args.compute_dtype))
+    model = mr.build(cfg, device=args.device, seed=args.seed,
+                     dtype=getattr(torch, args.compute_dtype))
     engine = ServingEngine(model, max_batch=args.max_batch,
                            max_len=args.prompt_len + args.max_new + 8)
     rng = np.random.default_rng(args.seed)

@@ -63,6 +63,10 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = _param(d, device=device, fill=1.0)
 
+    def reset(self, gen: torch.Generator):
+        """Unit scale (nothing is drawn)."""
+        self.scale.fill_(1.0)
+
     def forward(self, x, eps: float = 1e-6):
         """x * rsqrt(mean(x^2) + eps) * scale in f32, cast back to x's type;
         one PyTorch call in place of six (the forward's host time)."""

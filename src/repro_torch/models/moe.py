@@ -1,0 +1,247 @@
+"""Mixture-of-Experts FFN: GShard/Switch-style static capacity dispatch (the
+JAX package's ``models/moe.py``).
+
+Two dispatch modes (env ``REPRO_MOE_DISPATCH`` or the ``dispatch_mode``
+arg), with the same routing decisions:
+
+  - ``einsum`` (default): one-hot dispatch and combine products over the
+    (G, S, E, C) masks;
+  - ``gather``: dispatch by scatter-add into E·C slots (and a dump slot for
+    dropped pairs), combine by gathering each token's K slots.
+
+Tokens are routed in groups (default one a batch row; env
+``REPRO_MOE_TOKENS_PER_GROUP`` sets tokens a group) and each expert takes
+at most ``expert_capacity`` tokens a group: for each choice k in turn a
+token's slot at its expert is a cumulative count over the group's
+sequence, so earlier tokens win slots and later ones are dropped.  A
+decode step routes each batch row's one token as a group of its own.
+
+The router runs in f32 on f32 weights (``keep_f32``: ``cast_weights_``
+leaves them).  One-hot masks are comparisons against ``arange`` (no host
+check of the indices, as ``F.one_hot`` makes on the card), so the decode
+step stays capturable as a CUDA graph.  The expert products are E batched
+products of (G·C, d) × (d, f): the expert weights are never broadcast over
+the groups.
+"""
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.models import layers as L
+
+
+class Experts(nn.Module):
+    """The routed experts' stacked weights: ``w_in`` (E, d, f), ``w_out``
+    (E, f, d) and, for a gated activation, ``w_gate`` (E, d, f).  Cast by
+    ``transformer.cast_weights_`` as the linears are."""
+
+    def __init__(self, n_experts: int, d_model: int, d_ff: int, act: str, *,
+                 device=None):
+        super().__init__()
+        self.w_in = L._param(n_experts, d_model, d_ff, device=device)
+        self.w_out = L._param(n_experts, d_ff, d_model, device=device)
+        self.w_gate = L._param(n_experts, d_model, d_ff, device=device) \
+            if L.is_gated(act) else None
+
+    def reset(self, gen: torch.Generator):
+        # normal / sqrt(fan_in), fan_in = shape[-2] (the JAX ``_init_w``)
+        for w in (self.w_in, self.w_out, self.w_gate):
+            if w is not None:
+                w.normal_(0.0, 1.0, generator=gen).mul_(
+                    1.0 / math.sqrt(w.shape[-2]))
+
+
+class MoE(nn.Module):
+    """``router`` (d -> E, f32), ``experts`` and ``shared<i>`` (dense MLPs
+    of width ``d_ff_expert`` over every token): the JAX package's MoE
+    parameter keys."""
+
+    def __init__(self, d_model: int, moe: MoEConfig, act: str, *,
+                 device=None):
+        super().__init__()
+        self.router = L.Linear(d_model, moe.num_experts, device=device)
+        self.router.keep_f32 = True
+        self.experts = Experts(moe.num_experts, d_model, moe.d_ff_expert, act,
+                               device=device)
+        self.n_shared = moe.num_shared_experts
+        for i in range(self.n_shared):
+            setattr(self, f"shared{i}", L.MLP(d_model, moe.d_ff_expert, act,
+                                              device=device))
+
+    def reset(self, gen: torch.Generator):
+        self.router.reset(gen)
+        self.experts.reset(gen)
+        for i in range(self.n_shared):
+            getattr(self, f"shared{i}").reset(gen)
+
+    def forward(self, x, moe: MoEConfig, act: str, compute_dtype=None):
+        """x (B, S, d) -> (y, aux) (``moe_ffn``)."""
+        return moe_ffn(self, x, moe, act, compute_dtype=compute_dtype)
+
+
+def expert_capacity(tokens_per_group: int, moe: MoEConfig) -> int:
+    cap = int(moe.capacity_factor * tokens_per_group * moe.top_k
+              / moe.num_experts)
+    return max(cap, moe.top_k, 4)
+
+
+def _one_hot(idx, n: int, dtype):
+    """``idx`` (...) -> (..., n), by comparison on idx's device."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(router_probs, moe: MoEConfig):
+    """(gates renormalised over the top k, expert indices), each (G, S, K),
+    in descending order of probability."""
+    gates, idx = torch.topk(router_probs, moe.top_k, dim=-1)
+    return _renormalise(gates), idx
+
+
+def _renormalise(gates):
+    """gates (..., K) over their sum, clamped at 1e-9; the K gates are
+    summed left to right, as XLA sums them."""
+    total = gates[..., 0]
+    for kk in range(1, gates.shape[-1]):
+        total = total + gates[..., kk]
+    return gates / total[..., None].clamp_min(1e-9)
+
+
+def _positions(onehot, base_count):
+    """Position-in-expert of each (token, expert) of one choice: the
+    group's running count over the sequence, after ``base_count`` (G, E)
+    slots taken by the earlier choices."""
+    return torch.cumsum(onehot, dim=1, dtype=torch.int32) - 1 \
+        + base_count[:, None, :]
+
+
+def _top_k_mask(router_probs, moe: MoEConfig, capacity: int):
+    """router_probs (G, S, E) -> dispatch (G, S, E, C) bool, combine (G, S,
+    E, C) f32: GShard position-in-expert assignment, k slots."""
+    G, S, E = router_probs.shape
+    gates, idx = _top_k(router_probs, moe)
+    dev = router_probs.device
+    base_count = torch.zeros((G, E), dtype=torch.int32, device=dev)
+    dispatch = torch.zeros((G, S, E, capacity), dtype=torch.bool, device=dev)
+    combine = torch.zeros((G, S, E, capacity), dtype=torch.float32,
+                          device=dev)
+    for kk in range(moe.top_k):
+        onehot = _one_hot(idx[..., kk], E, torch.int32)           # (G,S,E)
+        pos = _positions(onehot, base_count)
+        keep = (pos < capacity) & (onehot > 0)
+        # a dropped pair's position is C: it has no slot among the first C
+        slot = _one_hot(torch.where(keep, pos, capacity), capacity,
+                        torch.float32) * onehot[..., None]
+        dispatch |= slot > 0
+        combine += slot * gates[..., kk][..., None, None]
+        base_count = base_count + onehot.sum(1, dtype=torch.int32)
+    return dispatch, combine
+
+
+def load_balance_loss(router_probs, dispatch):
+    """Switch-style aux loss: E * <fraction routed> . <mean prob>."""
+    E = router_probs.shape[-1]
+    frac = dispatch.any(-1).float().mean((0, 1))
+    prob = router_probs.mean((0, 1))
+    return E * (frac * prob).sum()
+
+
+def _top_k_routing(router_probs, moe: MoEConfig, capacity: int):
+    """Index form of ``_top_k_mask``'s assignment: expert index, slot, keep
+    and gate, each (G, S, K).  The same routing decisions."""
+    G, S, E = router_probs.shape
+    gates, idx = _top_k(router_probs, moe)
+    base_count = torch.zeros((G, E), dtype=torch.int32,
+                             device=router_probs.device)
+    slots, keeps = [], []
+    for kk in range(moe.top_k):
+        onehot = _one_hot(idx[..., kk], E, torch.int32)
+        pos = _positions(onehot, base_count)
+        pos_k = torch.gather(pos, -1, idx[..., kk, None])[..., 0]
+        slots.append(pos_k)
+        keeps.append(pos_k < capacity)
+        base_count = base_count + onehot.sum(1, dtype=torch.int32)
+    return idx, torch.stack(slots, -1), torch.stack(keeps, -1), gates
+
+
+def _experts(p: MoE, xe, act: str):
+    """xe (G, E, C, d) -> (G, E, C, d): each expert's FFN over its slots,
+    as E batched products of (G·C, d) x (d, f)."""
+    G, E, C, d = xe.shape
+    w = p.experts
+    cdt = xe.dtype
+    xs = xe.transpose(0, 1).reshape(E, G * C, d)
+    h = torch.bmm(xs, w.w_in.to(cdt))
+    if w.w_gate is not None:
+        h = L.act_fn(act)(torch.bmm(xs, w.w_gate.to(cdt))) * h
+    else:
+        h = L.act_fn(act)(h)
+    ye = torch.bmm(h, w.w_out.to(cdt))
+    return ye.view(E, G, C, d).transpose(0, 1)
+
+
+def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
+            compute_dtype=None, dispatch_mode=None):
+    """x (B, S, d) -> (y, aux) with aux = {"lb_loss", "z_loss"}."""
+    mode = dispatch_mode or os.environ.get("REPRO_MOE_DISPATCH", "einsum")
+    B, S, d = x.shape
+    T = B * S
+    if num_groups is None:
+        tpg = int(os.environ.get("REPRO_MOE_TOKENS_PER_GROUP", "0"))
+        num_groups = max(T // tpg, 1) if tpg else B
+    G = min(num_groups, T)
+    while T % G:
+        G -= 1
+    xg = x.reshape(G, T // G, d)
+
+    logits = p.router(xg.float())                       # (G, Sg, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
+    E = moe.num_experts
+    cap = expert_capacity(T // G, moe)
+    cdt = compute_dtype or xg.dtype
+
+    if mode == "gather":
+        e_idx, slot, keep, gates = _top_k_routing(probs, moe, cap)
+        routed = torch.zeros(probs.shape, dtype=torch.float32,
+                             device=x.device)
+        for kk in range(moe.top_k):
+            routed += _one_hot(e_idx[..., kk], E, torch.float32) \
+                * keep[..., kk, None].float()
+        lb = E * (routed.mean((0, 1)) * probs.mean((0, 1))).sum()
+        flat = torch.where(keep, e_idx * cap + slot, E * cap)   # dump slot
+        K = moe.top_k
+        src = xg.to(cdt)[:, :, None, :].expand(G, T // G, K, d)
+        xe = torch.zeros((G, E * cap + 1, d), dtype=cdt, device=x.device)
+        xe.scatter_add_(1, flat.reshape(G, -1, 1).expand(-1, -1, d),
+                        src.reshape(G, -1, d))
+        xe = xe[:, :E * cap].reshape(G, E, cap, d)
+    else:
+        dispatch, combine = _top_k_mask(probs, moe, cap)
+        lb = load_balance_loss(probs, dispatch)
+        disp = dispatch.to(cdt).reshape(G, T // G, E * cap)
+        xe = torch.bmm(disp.transpose(1, 2), xg.to(cdt)) \
+            .view(G, E, cap, d)                               # gsec,gsd->gecd
+    ye = _experts(p, xe, act)
+
+    if mode == "gather":
+        ye_flat = torch.cat([ye.reshape(G, E * cap, d),
+                             torch.zeros((G, 1, d), dtype=ye.dtype,
+                                         device=ye.device)], dim=1)
+        picked = torch.gather(
+            ye_flat, 1, flat.reshape(G, -1, 1).expand(-1, -1, d)) \
+            .view(G, T // G, moe.top_k, d)                    # (G, S, K, d)
+        w = torch.where(keep, gates, 0.0).to(cdt)
+        y = (picked * w[..., None]).sum(2)
+    else:
+        y = torch.bmm(combine.to(cdt).reshape(G, T // G, E * cap),
+                      ye.reshape(G, E * cap, d))              # gsec,gecd->gsd
+    y = y.reshape(B, S, d)
+
+    for i in range(moe.num_shared_experts):
+        y = y + getattr(p, f"shared{i}")(x, compute_dtype)
+    return y, {"lb_loss": lb, "z_loss": z_loss}

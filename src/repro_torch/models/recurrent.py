@@ -13,7 +13,7 @@ Decode is one step with O(1) state: h (B, dl) in f32 and the conv's last
 The JAX package has no Pallas kernel for any of this, so it is plain
 PyTorch on every device.  Kept for parity with the reference: the gates run
 in f32 whatever the compute dtype, with the gate weights kept in f32
-(``keep_f32``: ``Transformer.cast_weights_`` leaves them); the scan's output
+(``keep_f32``: ``transformer.cast_weights_`` leaves them); the scan's output
 is cast to its input's dtype and prefill carries that cast value's last row
 as h, while a decode step carries its f32 h; the conv state is the block's
 last ``width - 1`` rows of ``xb`` before the conv.  mLSTM and sLSTM come

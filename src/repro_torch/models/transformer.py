@@ -12,8 +12,10 @@ The JAX package stacks per-period parameters and runs them under
 ``ModuleList`` walked by a Python loop (layer ``i`` is the JAX package's
 period ``i // len(block_pattern)``, sub-block ``i % len(block_pattern)``,
 of kind ``cfg.layer_kinds[i]``; the encoder's layer ``i`` is period ``i``
-of ``encoder.blocks``).  The xLSTM block kinds and MoE raise
-``NotImplementedError``.
+of ``encoder.blocks``).  A config with ``moe`` routes every decoder
+block's FFN through capacity-dispatch experts (``models/moe.py``; the
+forward returns logits only, ``moe_ffn`` gives the aux losses).  The
+xLSTM block kinds raise ``NotImplementedError``.
 
 ``decode_step`` updates its ``KVCache`` in place (the JAX step returns a
 new cache; XLA donates the old one's buffers) and reads the position from
@@ -31,6 +33,7 @@ from torch import nn
 from repro_torch.configs import base as C
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
 PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU, C.CROSS_ATTN, C.ENC_ATTN)
@@ -43,17 +46,15 @@ def check_supported(cfg: C.ModelConfig):
             raise NotImplementedError(
                 f"{cfg.name}: {kind!r} blocks are ported with the slice for "
                 f"{_LATER.get(kind, 'their model kind')}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are ported with the "
-                                  f"MoE slice")
 
 
 class Block(nn.Module):
     """Pre-norm mixer, global, sliding-window or encoder (non-causal, no
     RoPE) attention (``attn``) or the RG-LRU block (``rec``); in a
     ``CROSS_ATTN`` block then cross attention over the context (``ln_x``,
-    ``xattn``); then the (optional) MLP; each with a residual (the JAX
-    package's ``apply_block`` for these kinds)."""
+    ``xattn``); then the (optional) MLP, or under ``cfg.moe`` the MoE FFN
+    (``moe``) outside the encoder; each with a residual (the JAX package's
+    ``apply_block`` for these kinds)."""
 
     def __init__(self, cfg: C.ModelConfig, kind: str, *, device=None):
         super().__init__()
@@ -68,11 +69,15 @@ class Block(nn.Module):
         if kind == C.CROSS_ATTN:
             self.ln_x = L.RMSNorm(cfg.d_model, device=device)
             self.xattn = A.Attention(cfg, cross=True, device=device)
+        self.ln2 = self.mlp = self.moe = None
         if cfg.d_ff > 0:
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
-            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, device=device)
-        else:
-            self.ln2 = self.mlp = None
+            if cfg.moe is not None and kind != C.ENC_ATTN:
+                self.moe = M.MoE(cfg.d_model, cfg.moe, cfg.mlp_act,
+                                 device=device)
+            else:
+                self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                 device=device)
 
     def reset(self, gen: torch.Generator):
         (self.rec if self.kind == C.RGLRU else self.attn).reset(gen)
@@ -80,6 +85,8 @@ class Block(nn.Module):
             self.xattn.reset(gen)
         if self.mlp is not None:
             self.mlp.reset(gen)
+        if self.moe is not None:
+            self.moe.reset(gen)
 
     def forward(self, x, cfg: C.ModelConfig, cdt, rope=None, ctx=None):
         """Returns (x, state): the attention's post-RoPE (k, v), followed in
@@ -121,7 +128,25 @@ class Block(nn.Module):
     def _ffn(self, x, cfg: C.ModelConfig, cdt):
         if self.mlp is not None:
             x = x + self.mlp(self.ln2(x, cfg.norm_eps), cdt)
+        elif self.moe is not None:
+            y, _ = self.moe(self.ln2(x, cfg.norm_eps), cfg.moe, cfg.mlp_act,
+                            cdt)
+            x = x + y
         return x
+
+
+def cast_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Store ``module``'s matmul and embedding weights (and biases) and its
+    MoE experts in ``dtype`` once, in place, instead of casting them on
+    every call; norm scales, the RG-LRU's conv taps and Λ, and the weights
+    used in f32 (``keep_f32``: the RG-LRU's gates, the MoE router) stay
+    f32.  The values are those the per-call cast produces."""
+    for mod in module.modules():
+        if (isinstance(mod, (L.Linear, L.Embedding, M.Experts))
+                and not getattr(mod, "keep_f32", False)):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return module
 
 
 @dataclasses.dataclass
@@ -190,47 +215,46 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = L.Embedding(cfg.vocab_size, cfg.d_model, device=device)
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
-        if not cfg.tie_embeddings:
-            self.unembed = L.Embedding(cfg.vocab_size, cfg.d_model, device=device)
-        else:
-            self.unembed = None
-        self.blocks = nn.ModuleList(Block(cfg, kind, device=device)
-                                    for kind in cfg.layer_kinds)
+        self.blocks = nn.ModuleList()
+        self.encoder = None
         if cfg.encoder is not None:
             self.encoder = nn.Module()
-            self.encoder.blocks = nn.ModuleList(
-                Block(cfg, C.ENC_ATTN, device=device)
-                for _ in range(cfg.encoder.n_layers))
-            self.encoder.final_norm = L.RMSNorm(cfg.d_model, device=device)
-        else:
-            self.encoder = None
+            self.encoder.blocks = nn.ModuleList()
+        for owner, name, make in self.parts():
+            owner.add_module(name, make(device))
+        if cfg.tie_embeddings:
+            self.unembed = None
+
+    def parts(self):
+        """``(owner, name, make)`` of each part of the model, in ``reset``'s
+        order of draws: the embedding, the unembedding, each block, each
+        encoder block, then the final norms; ``make(device)`` builds the
+        part anew in f32 (``models.registry.build`` draws and casts one
+        part at a time)."""
+        cfg = self.cfg
+        embed = lambda dev: L.Embedding(cfg.vocab_size, cfg.d_model,
+                                        device=dev)
+        norm = lambda dev: L.RMSNorm(cfg.d_model, device=dev)
+        out = [(self, "embed", embed)]
+        if not cfg.tie_embeddings:
+            out.append((self, "unembed", embed))
+        out += [(self.blocks, str(i),
+                 lambda dev, kind=kind: Block(cfg, kind, device=dev))
+                for i, kind in enumerate(cfg.layer_kinds)]
+        if cfg.encoder is not None:
+            out += [(self.encoder.blocks, str(i),
+                     lambda dev: Block(cfg, C.ENC_ATTN, device=dev))
+                    for i in range(cfg.encoder.n_layers)]
+        out.append((self, "final_norm", norm))
+        if cfg.encoder is not None:
+            out.append((self.encoder, "final_norm", norm))
+        return out
 
     def reset(self, gen: torch.Generator):
         """Random weights in the JAX package's distributions (normal /
         sqrt(fan_in), embeddings / sqrt(d), zero biases, unit norms)."""
-        self.embed.reset(gen)
-        if self.unembed is not None:
-            self.unembed.reset(gen)
-        for blk in self.blocks:
-            blk.reset(gen)
-        if self.encoder is not None:
-            for blk in self.encoder.blocks:
-                blk.reset(gen)
-
-    def cast_weights_(self, dtype: torch.dtype) -> "Transformer":
-        """Store matmul and embedding weights (and biases) in ``dtype`` once,
-        in place, instead of casting them on every call; norm scales, the
-        RG-LRU's conv taps and Λ, and the weights its gates use in f32
-        (``keep_f32``) stay f32.  The values are those the per-call cast
-        produces."""
-        for mod in self.modules():
-            if (isinstance(mod, (L.Linear, L.Embedding))
-                    and not getattr(mod, "keep_f32", False)):
-                for p in mod.parameters(recurse=False):
-                    p.data = p.data.to(dtype)
-        return self
+        for owner, name, _ in self.parts():
+            getattr(owner, name).reset(gen)
 
     @property
     def padded_vocab(self) -> int:

@@ -28,6 +28,7 @@ from repro_torch.models import attention as tA  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import registry as tmr  # noqa: E402
+from repro_torch.models.transformer import cast_weights_  # noqa: E402
 
 CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
@@ -118,14 +119,14 @@ def test_bf16_weights_cast_once_match_per_call_cast():
                            generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         per_call = model(tokens)
-        model.cast_weights_(torch.bfloat16)
+        cast_weights_(model, torch.bfloat16)
         once = model(tokens)
     assert once.dtype == torch.bfloat16
     assert torch.equal(per_call, once)
 
 
 def test_unported_block_kinds_raise():
-    for name in ("xlstm-1.3b", "moonshot-v1-16b-a3b"):
+    for name in ("xlstm-1.3b",):
         with pytest.raises(NotImplementedError):
             tmr.build(tcr.reduced(name), device="cpu")
 

@@ -40,6 +40,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import layers as tL  # noqa: E402
 from repro_torch.models import recurrent as tR  # noqa: E402
 from repro_torch.models import registry as tmr  # noqa: E402
+from repro_torch.models.transformer import cast_weights_  # noqa: E402
 
 NAME = "recurrentgemma-2b"
 N_LAYERS = 5
@@ -222,9 +223,9 @@ def test_gates_stay_f32_in_bf16():
     JAX package's f32 ``_rglru_gates``."""
     jcfg, tcfg = _cfgs()
     params = _params_np(jcfg)
-    model = convert.from_jax_params(
+    model = cast_weights_(convert.from_jax_params(
         params, dataclasses.replace(tcfg, compute_dtype="bfloat16"),
-        device="cpu").cast_weights_(torch.bfloat16)
+        device="cpu"), torch.bfloat16)
     rec = model.blocks[0].rec
     assert rec.wx.w.dtype == rec.w_lru_out.w.dtype == torch.bfloat16
     assert model.blocks[2].attn.wq.w.dtype == torch.bfloat16
