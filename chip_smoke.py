@@ -45,7 +45,12 @@ pairs capacity drops, decode steps held against the forward at a
 capacity that drops nothing with the routing held to the forward's (each
 gate on the next expert down, in every layer and in the middle layer,
 planted, which must fail; freely routed steps, eager and as a CUDA
-graph, reported), and the ``serve`` launcher's engine.  Every
+graph, reported), and the ``serve`` launcher's engine.  Then the paper
+path: the JAX package's paper tables on the card (``repro_torch.benchmarks``):
+NeuSight trained per dtype, Table II, Table IV over the reference's six
+models and qwen2-0.5b and yi-6b at full width, Fig. 3, the partition
+application and the planner CLI, pricing the same measured work with
+PM2Lat, NeuSight and the FLOPs/bytes proxy.  Every
 phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
@@ -58,6 +63,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX packa
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -74,15 +80,23 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.benchmarks import fig3_throughput_vs_k as fig3  # noqa: E402
+from repro_torch.benchmarks import partition_app  # noqa: E402
+from repro_torch.benchmarks import table2_per_layer as table2  # noqa: E402
+from repro_torch.benchmarks import table4_model_wise as table4  # noqa: E402
 from repro_torch.configs import base as C  # noqa: E402
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
 from repro_torch.core import comm_calibrate as comm  # noqa: E402
+from repro_torch.core import memory_model as memmod  # noqa: E402
 from repro_torch.core import opgraph as og  # noqa: E402
 from repro_torch.core import partition  # noqa: E402
 from repro_torch.core import profiler  # noqa: E402
 from repro_torch.core import schedule as sched  # noqa: E402
 from repro_torch.core import validate  # noqa: E402
+from repro_torch.core.baselines import neusight as ns  # noqa: E402
+from repro_torch.core.baselines.habitat import HabitatScaler  # noqa: E402
+from repro_torch.core.baselines.roofline import RooflineBaseline  # noqa: E402
 from repro_torch.core.batch_predict import (BatchPredictor,  # noqa: E402
                                             PredictionCache, config_key)
 from repro_torch.core.devices.profiles import H100_SXM  # noqa: E402
@@ -94,6 +108,7 @@ from repro_torch.core.transfer import transfer_store  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
+from repro_torch.launch import plan as plan_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -271,6 +286,28 @@ MOE_REF_STEP_ERR = {48: 6.9e-2}
 MOE_SERVE_ARGS = ["--arch", MOE, "--requests", "8", "--prompt-len", "64",
                   "--max-new", "32", "--max-batch", "4", "--temperature",
                   "0", "--compute-dtype", "bfloat16", "--seed", "0"]
+# The paper phase: the JAX package's paper tables on the card, each pricing
+# the same measured work with PM2Lat, NeuSight and the FLOPs/bytes proxy.
+# NeuSight is trained per dtype on PAPER_NS_SAMPLES timed ``torch.matmul``
+# calls and the float32 utility ops' samples, PAPER_NS_STEPS Adam steps
+# (``benchmarks/common.py``'s defaults).  Table II draws
+# PAPER_TABLE2_SAMPLES shapes a layer; Table IV runs the reference's six
+# models and, at full width, qwen2-0.5b and yi-6b (32 layers, d 4096, 32 /
+# 4 heads of 128: 24.2 GB in float32) at PAPER_BATCHES x PAPER_SEQ in both
+# dtypes; the planner CLI plans yi-6b at PAPER_PLAN_ARGS (its defaults: B 8
+# x S 64); NeuSight's prediction cost is PAPER_NS_REPS ``predict_matmul``
+# calls (``benchmarks/nas_speed.py``).  Errors are reported, not gated.
+PAPER_MODELS = table4.MODELS + ("qwen2-0.5b", "yi-6b")
+PAPER_BATCHES, PAPER_SEQ = table4.BATCHES, table4.SEQ
+PAPER_NS_SAMPLES, PAPER_NS_STEPS = 40, 800
+PAPER_TABLE2_SAMPLES = 10
+PAPER_PLAN_ARGS = ["--arch", "yi-6b", "--stages", "4"]
+PAPER_NS_REPS = 200
+# The ``kernels`` line's flash rows for the paper path's narrow heads: hd 32
+# (qwen3-mini, 8 heads over 4) and hd 16 (a reduced config's 4 over 4) at
+# (B, S) PAPER_TIMED, causal.
+PAPER_TIMED = (8, PAPER_SEQ)
+PAPER_TIMED_ARCHS = ("qwen3-mini", "moonshot-v1-16b-a3b-reduced")
 
 
 def emit(phase: str, **fields):
@@ -594,6 +631,26 @@ def moe_path_cases():
     return out
 
 
+def paper_path_cases():
+    """The flash calls of the paper path that the earlier paths lack: each
+    Table IV forward (B, PAPER_SEQ) of each of PAPER_MODELS, causal, at the
+    model's heads and window (a local-attention layer's); they include the
+    partition application's blocks (qwen3-mini at its default (4, 128))."""
+    have = set(decode_path_cases() + grid_path_cases()
+               + schedule_path_cases() + hybrid_path_cases()
+               + encdec_path_cases() + moe_path_cases())
+    out = []
+    for arch in PAPER_MODELS:
+        c = cfg_registry.get_any(arch)
+        window = c.sliding_window if C.LOCAL_ATTN in c.layer_kinds else None
+        for B in PAPER_BATCHES:
+            case = (B, PAPER_SEQ, PAPER_SEQ, c.n_heads, c.n_kv_heads,
+                    c.head_dim, True, window, None)
+            if case not in have and case not in out:
+                out.append(case)
+    return out
+
+
 def check_flash(dtypes):
     """Causal and not, window 64, every instantiated head dim, GQA, ragged
     and unequal lengths (bottom-right causal alignment), every config
@@ -605,7 +662,9 @@ def check_flash(dtypes):
     (``grid_path_cases``), the schedule path's (``schedule_path_cases``),
     the hybrid path's (``hybrid_path_cases``), the encoder–decoder
     path's (``encdec_path_cases``: non-causal over 1,500 keys, ragged
-    against both tiles) and the MoE path's (``moe_path_cases``: hd 128)."""
+    against both tiles), the MoE path's (``moe_path_cases``: hd 128) and
+    the paper path's (``paper_path_cases``: hd 16, 32, 64 and 128 at S
+    128)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -627,7 +686,8 @@ def check_flash(dtypes):
         (1, 77, 77, 2, 2, 256, False, None, None),
         (1, 150, 201, 4, 2, 256, True, None, "offset"),
     ] + decode_path_cases() + grid_path_cases() + schedule_path_cases() \
-        + hybrid_path_cases() + encdec_path_cases() + moe_path_cases()
+        + hybrid_path_cases() + encdec_path_cases() + moe_path_cases() \
+        + paper_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -3129,6 +3189,205 @@ def moe_serve(pm):
     return rec
 
 
+def phase_paper(store, grid):
+    """The paper's tables on the card, on the store phase ``calibrate``
+    wrote: (a) NeuSight trained per dtype (training seconds, in-sample
+    error); (b) Table II; (c) Table IV over PAPER_MODELS at PAPER_BATCHES x
+    PAPER_SEQ in both dtypes, each model freed before the next; (d) Fig. 3
+    in both dtypes; (e) the partition application; (f) the planner CLI at
+    PAPER_PLAN_ARGS against ``plan_stages`` over ``predict_blocks``; (g)
+    NeuSight's µs a prediction beside phase ``grid``'s PM2Lat µs; (h)
+    ``HabitatScaler`` at ratios 1 against PM2Lat on every Table IV op list
+    (each row's seconds equal, the total their left-to-right sum); (i)
+    roofline's peak against the store's best matmul anchor.  Errors are
+    reported; fails on a non-finite or non-positive time, a forward whose
+    flash launches are not one per attention layer, logits not finite, or
+    an identity (f, h, i) unequal."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = store.meta["device"]
+    pm = PM2Lat(store, dev)
+    bad = []
+    positive = lambda *xs: all(np.isfinite(x) and x > 0 for x in xs)
+    rec = {"allocated_at_start_bytes": torch.cuda.memory_allocated(),
+           "l2_correction": pm.memory_model.cache is not None}
+
+    # (a) NeuSight, one model a dtype
+    t = time.perf_counter()
+    mem_samples = memmod.collect_utility_samples(device="cuda")
+    rec["neusight_mem_samples_s"] = time.perf_counter() - t
+    neusight, rec["neusight"] = {}, []
+    for dname in DTYPES:
+        t = time.perf_counter()
+        samples = ns.collect_matmul_dataset(PAPER_NS_SAMPLES, dtype=dname,
+                                            seed=0, device="cuda")
+        t_collect = time.perf_counter() - t
+        t = time.perf_counter()
+        model = ns.train(samples, mem_samples,
+                         peak_flops=best_matmul_anchor(store, dname),
+                         steps=PAPER_NS_STEPS, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t
+        neusight[dname] = model
+        torch.save(model.state(), OUT / f"neusight_{dname}.pt")
+        err = [abs(model.predict_matmul(s["m"], s["n"], s["k"])
+                   - s["duration"]) / s["duration"] for s in samples]
+        mem_err = [abs(model.predict_memory(s["features"]) - s["duration"])
+                   / s["duration"] for s in mem_samples]
+        rec["neusight"].append({
+            "dtype": dname, "samples": len(samples),
+            "mem_samples": len(mem_samples), "steps": PAPER_NS_STEPS,
+            "collect_s": t_collect, "train_s": t_train,
+            "peak_flops": model.peak_flops,
+            "in_sample_mean_err_pct": 100 * float(np.mean(err)),
+            "in_sample_mem_mean_err_pct": 100 * float(np.mean(mem_err)),
+            "device": str(model.device)})
+        if not positive(*(s["duration"] for s in samples)):
+            bad.append(f"neusight {dname}: a sample's time is not positive")
+    emit("paper_neusight", mem_samples_s=rec["neusight_mem_samples_s"],
+         models=rec["neusight"])
+
+    # (b) Table II
+    t2 = table2.run(store, neusight, samples_per_layer=PAPER_TABLE2_SAMPLES,
+                    device="cuda")
+    rec["table2"] = t2
+    mean_over_layers = {d: {k: float(np.mean([e[k]["mean"] for e in
+                                              t2["errors"][d].values()]))
+                            for k in table2.PREDICTORS} for d in DTYPES}
+    emit("paper_table2", errors=t2["errors"],
+         mean_over_layers_pct=mean_over_layers, samples=len(t2["rows"]))
+    bad += [f"table2 {r['dtype']} {r['layer']} {r['shape']}: {r}"
+            for r in t2["rows"] if not positive(
+                r["measured_ms"], *(r[f"{k}_ms"] for k in table2.PREDICTORS))]
+
+    # (c) Table IV
+    t = time.perf_counter()
+    t4 = table4.run(store, neusight, models=PAPER_MODELS,
+                    batches=PAPER_BATCHES, seq=PAPER_SEQ, device="cuda")
+    t4["seconds"] = time.perf_counter() - t
+    rec["table4"] = t4
+    summary = paper_table4_summary(t4["rows"])
+    emit("paper_table4", seconds=t4["seconds"], summary=summary,
+         rows=[{k: r[k] for k in ("model", "dtype", "batch", "measured_ms",
+                                  "pm2lat_pct", "neusight_pct",
+                                  "flops_proxy_pct", "flash_launches")}
+               for r in t4["rows"]])
+    for r in t4["rows"]:
+        what = f"table4 {r['model']} {r['dtype']} B {r['batch']}"
+        if not positive(r["measured_ms"],
+                        *(r[f"{k}_ms"] for k in table4.PREDICTORS)):
+            bad.append(f"{what}: a time is not finite and positive")
+        if r["flash_launches"] != r["flash_calls"]:
+            bad.append(f"{what}: {r['flash_launches']} flash launches, "
+                       f"expected {r['flash_calls']}")
+        if not r["logits_finite"]:
+            bad.append(f"{what}: logits not finite")
+
+    # (d) Fig. 3
+    rec["fig3"] = {d: fig3.run(store, d) for d in DTYPES}
+    emit("paper_fig3", **rec["fig3"])
+
+    # (e) the partition application
+    rec["partition"] = part = partition_app.run(store, neusight["float32"],
+                                                device="cuda")
+    emit("paper_partition", **part)
+    if part["flash_launches"] != part["blocks"]:
+        bad.append(f"partition: {part['flash_launches']} flash launches over "
+                   f"{part['blocks']} blocks")
+    if not positive(*part["measured_block_ms"], *part["pm2lat_block_ms"],
+                    *part["neusight_block_ms"]):
+        bad.append("partition: a block time is not finite and positive")
+
+    # (f) the planner CLI
+    args = plan_launcher.parse_args(PAPER_PLAN_ARGS)
+    got = plan_launcher.run(args)
+    cfg = (cfg_registry.reduced(args.arch) if args.reduced
+           else cfg_registry.get_any(args.arch))
+    want = partition.plan_stages(pm.predict_blocks(cfg, args.batch, args.seq),
+                                 args.stages)
+    rec["plan"] = {"args": PAPER_PLAN_ARGS, "boundaries": got.boundaries,
+                   "stage_ms": [x * 1e3 for x in got.stage_times],
+                   "bottleneck_ms": got.bottleneck * 1e3,
+                   "equal": dataclasses.astuple(got)
+                   == dataclasses.astuple(want)}
+    emit("paper_plan", **rec["plan"])
+    if not rec["plan"]["equal"]:
+        bad.append(f"plan {got} != {want}")
+
+    # (g) NeuSight's cost a prediction, beside PM2Lat's NAS cache
+    rec["speed"] = {"device": torch.cuda.get_device_name(0)}
+    for dname in DTYPES:
+        model = neusight[dname]
+        model.predict_matmul(512, 512, 512)
+        t = time.perf_counter()
+        for i in range(PAPER_NS_REPS):
+            model.predict_matmul(512 + i, 512, 512)
+        us = (time.perf_counter() - t) / PAPER_NS_REPS * 1e6
+        pm_us = grid["speed"][f"nas_{dname}"]["us_per_prediction"]
+        rec["speed"][dname] = {"neusight_us_per_prediction": us,
+                               "pm2lat_us_per_prediction": pm_us,
+                               "neusight_over_pm2lat": us / pm_us}
+    emit("paper_speed", **rec["speed"])
+
+    # (h) Habitat at ratios 1 is PM2Lat; (i) roofline's peak
+    habitat = HabitatScaler(pm, 1.0, 1.0)
+    unequal = []
+    for r in t4["rows"]:
+        cfg = dataclasses.replace(cfg_registry.get_any(r["model"]),
+                                  compute_dtype=r["dtype"])
+        ops = og.enumerate_ops(cfg, r["batch"], r["seq"], dtype=r["dtype"])
+        total, rows = habitat.predict_ops(ops)
+        want = [pm.predict_op(op) for op in ops]
+        acc = 0.0
+        for w in want:
+            acc += w.seconds
+        if total != acc or [(x.name, x.kind, x.seconds) for x in rows] != \
+                [(x.name, x.kind, x.seconds) for x in want]:
+            unequal.append([r["model"], r["dtype"], r["batch"]])
+    peaks = {d: {"roofline": RooflineBaseline.from_store(store, dev, d)
+                 .peak_flops, "best_anchor": best_matmul_anchor(store, d)}
+             for d in DTYPES}
+    rec["identities"] = {"habitat_op_lists": len(t4["rows"]),
+                         "habitat_unequal": unequal, "roofline_peak": peaks}
+    emit("paper_identities", **rec["identities"])
+    bad += [f"habitat != pm2lat on {u}" for u in unequal]
+    bad += [f"roofline peak {d}: {p}" for d, p in peaks.items()
+            if p["roofline"] != p["best_anchor"] or not p["roofline"] > 0]
+
+    rec["seconds"] = time.perf_counter() - t0
+    emit("paper", seconds=rec["seconds"], failed=bad)
+    if bad:
+        raise AssertionError(f"paper: {bad}")
+    return rec
+
+
+def best_matmul_anchor(store, dname):
+    """The best throughput anchor over the store's ``dname`` matmul
+    tables (cuBLAS and the hand kernels)."""
+    return max(max(t.anchors.values()) for t in store.tables.values()
+               if t.key.op == "matmul" and t.key.dtype == dname)
+
+
+def paper_table4_summary(rows):
+    """Mean |signed error| (%) per dtype and predictor over Table IV's
+    rows, all of them and split into the reference's models and the two
+    full-width ones, with PM2Lat's error over NeuSight's (the paper's
+    headline compares the two)."""
+    groups = {"all": PAPER_MODELS, "reference": table4.MODELS,
+              "full_width": PAPER_MODELS[len(table4.MODELS):]}
+    out = {}
+    for g, models in groups.items():
+        for d in DTYPES:
+            sel = [r for r in rows if r["dtype"] == d and r["model"] in models]
+            mean = {k: float(np.mean([abs(r[f"{k}_pct"]) for r in sel]))
+                    for k in table4.PREDICTORS}
+            out.setdefault(g, {})[d] = {
+                **{f"{k}_mean_abs_pct": v for k, v in mean.items()},
+                "pm2lat_over_neusight": mean["pm2lat"] / mean["neusight"]}
+    return out
+
+
 def bound(nbytes, flops, dname="bfloat16"):
     """(the least ms the card could take to move ``nbytes`` and do
     ``flops`` in ``dname``, which of the two bounds it)."""
@@ -3161,7 +3420,10 @@ def kernel_lines(by_path, mm_pick):
     the encoder's (8, 1500) and the cross attention's (8, 448 x 1500), and
     the non-causal launches on each path (``flash_case``); its ``hd128``
     the same for moonshot-v1-16b-a3b's (8, 512), 16 heads of 128, causal,
-    and the hd-128 launches on each path.  ``by_path``: each path's
+    and the hd-128 launches on each path; its ``paper`` the same for the
+    paper path's narrow heads at PAPER_TIMED (PAPER_TIMED_ARCHS: hd 32,
+    qwen3-mini's 8 over 4; hd 16, a reduced config's 4 over 4), causal,
+    and the hd-32 and hd-16 launches on each path.  ``by_path``: each path's
     ``hand_launches``; ``launches`` is the main path's.  Every number here
     is measured, but ``bound_ms``."""
     launches = by_path["main"]
@@ -3202,7 +3464,7 @@ def kernel_lines(by_path, mm_pick):
         library call is SDPA over KV heads repeated to the query heads,
         with a window as a boolean mask where it masks (Sq > window),
         causal or not as the call."""
-        h = cfg_registry.get(arch)
+        h = cfg_registry.get_any(arch)
         Hq, hd, dname = h.n_heads, h.head_dim, str(dt).split(".")[1]
         args = tuple(torch.randn(B, S, n, hd, generator=gen,
                                  device="cuda").to(dt)
@@ -3347,7 +3609,12 @@ def kernel_lines(by_path, mm_pick):
         "hd128": {"launches_by_path": {p: n.get("flash_attention@hd128", 0)
                                        for p, n in by_path.items()},
                   "cases": [flash_case(MOE, *MOE_FORWARD, MOE_FORWARD[1], dt,
-                                       True) for dt in (bf, f32)]}})
+                                       True) for dt in (bf, f32)]},
+        "paper": {"launches_by_path": {
+            p: {f"hd{hd}": n.get(f"flash_attention@hd{hd}", 0)
+                for hd in (16, 32)} for p, n in by_path.items()},
+            "cases": [flash_case(arch, *PAPER_TIMED, PAPER_TIMED[1], dt, True)
+                      for arch in PAPER_TIMED_ARCHS for dt in (bf, f32)]}})
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
@@ -3356,7 +3623,7 @@ def kernel_lines(by_path, mm_pick):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
-    for key in ("hd256", "encdec", "hd128"):
+    for key in ("hd256", "encdec", "hd128", "paper"):
         cases = lines[-1][key]["cases"]
         if not all(c["ok"] for c in cases):
             raise AssertionError(f"flash {key} cases: max errs "
@@ -3496,9 +3763,12 @@ def main() -> int:
     reset_launches()
     moe = phase_moe(store)
     by_path["moe"] = hand_launches()
+    reset_launches()
+    paper = phase_paper(store, grid)
+    by_path["paper"] = hand_launches()
     emit("path_launches", **by_path)
     for path in ("decode", "serve", "grid", "schedule", "service", "hybrid",
-                 "encdec", "moe"):
+                 "encdec", "moe", "paper"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -3517,7 +3787,7 @@ def main() -> int:
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
-                  encdec=encdec, moe=moe, kernels=kernels,
+                  encdec=encdec, moe=moe, paper=paper, kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -1,0 +1,57 @@
+"""Shared benchmark utilities: error metrics, the device's calibration, and
+the NeuSight baseline trained (and cached) on the device."""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from repro_torch.core import calibrate
+from repro_torch.core import memory_model as mm
+from repro_torch.core.baselines import neusight as ns
+from repro_torch.core.baselines.roofline import best_matmul_throughput
+
+
+def rel_err(pred: float, meas: float) -> float:
+    return abs(pred - meas) / max(abs(meas), 1e-12)
+
+
+def signed_err(pred: float, meas: float) -> float:
+    return (pred - meas) / max(abs(meas), 1e-12)
+
+
+def get_calibration(device="cuda"):
+    """The device's store: ``artifacts/torch/`` (or ``$REPRO_ARTIFACTS``),
+    calibrated first where there is none."""
+    return calibrate.load_or_calibrate(device=device, verbose=False)
+
+
+def neusight_path(dtype: str, device="cuda") -> str:
+    root = os.path.dirname(calibrate.default_store_path(device))
+    return os.path.join(root, f"neusight_{calibrate.device_name(device)}"
+                              f"_{dtype}.pt")
+
+
+def get_neusight(store, *, dtype: str, device="cuda", n_samples=40,
+                 steps=800, seed=0, path=None) -> ns.NeuSightModel:
+    """Train (and cache at ``path``, by default ``neusight_path``) the
+    NeuSight baseline for ``dtype`` on ``device``: ``n_samples`` timed
+    ``torch.matmul`` calls in ``dtype``, the float32 utility ops' samples,
+    and the peak of ``store``'s ``dtype`` matmul tables."""
+    path = path or neusight_path(dtype, device)
+    if os.path.exists(path):
+        return ns.NeuSightModel.from_state(
+            torch.load(path, weights_only=True), device=device)
+    samples = ns.collect_matmul_dataset(n_samples=n_samples, dtype=dtype,
+                                        seed=seed, device=device)
+    mem_samples = mm.collect_utility_samples(device=device)
+    model = ns.train(samples, mem_samples,
+                     peak_flops=best_matmul_throughput(store, dtype),
+                     steps=steps, seed=seed, device=device)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(model.state(), path)
+    return model
+
+
+def neusight_by_dtype(store, dtypes, device="cuda") -> dict:
+    return {dt: get_neusight(store, dtype=dt, device=device) for dt in dtypes}
