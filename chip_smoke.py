@@ -45,7 +45,13 @@ pairs capacity drops, decode steps held against the forward at a
 capacity that drops nothing with the routing held to the forward's (each
 gate on the next expert down, in every layer and in the middle layer,
 planted, which must fail; freely routed steps, eager and as a CUDA
-graph, reported), and the ``serve`` launcher's engine.  Then the paper
+graph, reported), and the ``serve`` launcher's engine.  Then the xLSTM
+path: xlstm-1.3b at full width (42 mLSTM and 6 sLSTM layers, plain
+PyTorch: no hand kernel), float32 and bf16, its forward measured, split by
+layer kind and predicted, decode steps held against the forward (the whole
+model and each layer alone, with a stale conv state planted, which must
+fail), the graph step against its price and bytes floor, and the
+``serve`` launcher's engine.  Then the paper
 path: the JAX package's paper tables on the card (``repro_torch.benchmarks``):
 NeuSight trained per dtype, Table II, Table IV over the reference's six
 models and qwen2-0.5b and yi-6b at full width, Fig. 3, the partition
@@ -286,6 +292,53 @@ MOE_REF_STEP_ERR = {48: 6.9e-2}
 MOE_SERVE_ARGS = ["--arch", MOE, "--requests", "8", "--prompt-len", "64",
                   "--max-new", "32", "--max-batch", "4", "--temperature",
                   "0", "--compute-dtype", "bfloat16", "--seed", "0"]
+# The xLSTM phase: xlstm-1.3b at full width (48 layers, 42 mLSTM and 6
+# sLSTM, d 2048, 4 heads, mLSTM inner width 4096 at hd 1024, vocab 50,304
+# padded to 50,432; 3.65 B parameters: 14.60 GB in float32, 7.30 GB in
+# bf16), built from seed 0 on the card in float32 and then in bf16, one at a
+# time.  Its forward is measured at XLSTM_FORWARDS[dtype] ((1, 4096) in
+# bf16 only: its sLSTM loop takes seconds a call) and traced at (8, 512)
+# in bf16 only (a profiled forward takes ~20 s to read back).  The decode check
+# prefills XLSTM_PROMPT tokens at batch XLSTM_BATCH and takes XLSTM_STEPS
+# steps, eagerly and as a CUDA graph.  The whole model: the prefill's and
+# each step's logits against the forward over all the tokens within
+# XLSTM_STEP_TOL.  The seeded model amplifies rounding through its depth
+# (the JAX package's own float32 steps at 48 layers miss its forward by up
+# to 2.17 % at reduced width, its bf16 steps by 132 %), so no limit of
+# DECODE_TOL's size holds for the whole model in either package:
+# XLSTM_STEP_TOL is the JAX package's own largest step error over seeds
+# 0-7 at 48 layers (``scripts/recurrent_step_drift.py``, reduced width, on
+# the CPU), rounded up to two digits.  The states after the whole model's
+# steps against a prefill of all the tokens are reported beside the JAX
+# package's (XLSTM_REF_STATE_ERR).  Each layer alone, teacher-forced on
+# the forward's own inputs to it (a prefill of XLSTM_PROMPT of them, then
+# XLSTM_STEPS block steps against the block's forward over all), in
+# float32: its steps within DECODE_TOL (the JAX package's own layers reach
+# 3.0e-5) and its states within XLSTM_LAYER_STATE_TOL, the JAX package's
+# own limit for its chunkwise state against its recurrent one (rtol 1e-3,
+# ``tests/test_recurrent.py``): the forward's GEMMs round by their shape
+# on the card, and the states sum 512 positions.  In bf16 the layers are
+# reported: their largest error is an outlier of the mLSTM's normaliser
+# (the port on the JAX package's own layer inputs errs as it does; see
+# ``tests/test_torch_xlstm.py``).  The planted fault leaves the middle
+# mLSTM layer's conv state stale for one step: the float32 layer check
+# must reject it.  The serving engine runs the launcher's XLSTM_SERVE_ARGS
+# (two waves of 4).
+XLSTM = "xlstm-1.3b"
+XLSTM_FORWARDS = {"float32": ((8, 512),), "bfloat16": ((8, 512), (1, 4096))}
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 8, 512, 32
+XLSTM_STEP_TOL = {"float32": 2.2e-2, "bfloat16": 1.4}
+XLSTM_LAYER_TOL, XLSTM_LAYER_STATE_TOL = DECODE_TOL["float32"], 1e-3
+# the JAX package's own whole-model state errors (same script), reported
+XLSTM_REF_STATE_ERR = {"float32": {"C": 2.72e-2, "n": 1.53e-1, "m": 2.02e-2,
+                                   "conv": 1.66e-2, "c": 1.39e-1,
+                                   "h": 7.35e-2},
+                       "bfloat16": {"C": 1.62, "n": 1.71, "m": 1.77,
+                                    "conv": 1.71, "c": 1.55, "h": 1.53}}
+XLSTM_SERVE_ARGS = ["--arch", XLSTM, "--requests", "8", "--prompt-len",
+                    "512", "--max-new", "16", "--max-batch", "4",
+                    "--temperature", "0", "--compute-dtype", "bfloat16",
+                    "--seed", "0"]
 # The paper phase: the JAX package's paper tables on the card, each pricing
 # the same measured work with PM2Lat, NeuSight and the FLOPs/bytes proxy.
 # NeuSight is trained per dtype on PAPER_NS_SAMPLES timed ``torch.matmul``
@@ -872,17 +925,46 @@ def phase_model(store):
     return results
 
 
-def device_ms(fn, *args, n=20):
-    """Device time of one call, from ``torch.profiler``'s device events
-    over ``n`` calls; None when the profiler shows no device time."""
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile_cuda() as prof:
+def device_ms(fn, *args, n=20, reps=5):
+    """Device time of one call: ``n`` calls captured once as a CUDA graph
+    (after a warm-up call on a side stream), the graph replayed ``reps``
+    times between two CUDA events, divided by ``n * reps``.  A replay
+    launches the calls' kernels with no host work between them, so the
+    reading is the device's (the gaps between its kernels included), and
+    no profiler event can be dropped from it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(n):
             fn(*args)
-        torch.cuda.synchronize()
-    ms = sum(t for _, t in device_rows(prof).values())
-    return ms / n if ms > 0 else None
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (n * reps)
+    del graph
+    return ms
+
+
+def host_ms(fn, *args, n=20):
+    """The host's time to enqueue one call, over ``n`` back-to-back calls
+    (synchronized before, not after)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    return ms
 
 
 def profile_cuda():
@@ -3189,6 +3271,386 @@ def moe_serve(pm):
     return rec
 
 
+def phase_xlstm(store):
+    """xlstm-1.3b at full width, float32 then bf16, each built from seed 0
+    on the card and freed before the next.  (b) the forward at
+    XLSTM_FORWARDS, measured and against the store's prediction, with the
+    time its mLSTM and sLSTM layers take (``xlstm_forward``); (c) decode
+    steps against the forward, the layers alone against theirs, the graph
+    against the eager steps and (d) a conv state left stale, which the
+    float32 layer check must reject (``xlstm_decode``); (e) the launcher's
+    bf16 engine over two waves, every token held against eager steps
+    (``xlstm_serve``).  The path launches no hand kernel: the model's
+    products are ``torch.matmul`` and it has no attention.  Fails if a
+    check of (b)-(e) fails or a hand kernel launched."""
+    t0 = time.perf_counter()
+    cfg0 = cfg_registry.get(XLSTM)
+    pm = PM2Lat(store, store.meta["device"])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    builds, forwards, decodes = [], [], []
+    for dname in DTYPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        t_build = time.perf_counter()
+        model = model_registry.build(cfg, device="cuda", seed=0,
+                                     dtype=getattr(torch, dname))
+        torch.cuda.synchronize()
+        builds.append({"dtype": dname, "build_s": time.perf_counter()
+                       - t_build, "parameters": sum(
+                           p.numel() for p in model.parameters()),
+                       "weight_bytes": sum(p.nbytes
+                                           for p in model.parameters())})
+        with torch.no_grad():
+            for j, (B, S) in enumerate(XLSTM_FORWARDS[dname]):
+                tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                                       generator=gen, device="cuda")
+                forwards.append(xlstm_forward(
+                    model, pm, cfg, tokens, first=j == 0,
+                    trace=j == 0 and dname == "bfloat16"))
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (XLSTM_BATCH, XLSTM_PROMPT + XLSTM_STEPS),
+                                   generator=gen, device="cuda")
+            decodes.append(xlstm_decode(model, pm, cfg, tokens))
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = xlstm_serve(pm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launched = {k: n for k, n in hand_launches().items() if n}
+    rec = {"builds": builds, "forwards": forwards, "decodes": decodes,
+           "serve": served, "hand_launches": launched,
+           "seconds": time.perf_counter() - t0}
+    emit("xlstm", builds=builds, hand_launches=launched,
+         seconds=rec["seconds"])
+    bad = [f"forward {r['dtype']} {r['batch']}x{r['seq']}: {r['failed']}"
+           for r in forwards if r["failed"]]
+    bad += [f"decode {r['dtype']}: {r['failed']}" for r in decodes
+            if r["failed"]]
+    bad += [f"serve: {served['failed']}"] if served["failed"] else []
+    bad += [f"hand kernels launched: {launched}"] if launched else []
+    if bad:
+        raise AssertionError(f"xlstm: {bad}")
+    return rec
+
+
+def kind_split(model, fn, *args):
+    """One call of ``fn`` with a CUDA event before and after it and each
+    block: (its output, {block kind: ms summed over its layers}, the
+    call's ms).  The events are recorded as the host reaches them, so a
+    host-bound layer's time is its span on the device, idle gaps
+    included."""
+    marks = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def mark(kind):
+        def hook(*_):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            marks.append((kind, event))
+        return hook
+
+    hooks = [h for blk in model.blocks for h in (
+        blk.register_forward_pre_hook(mark(blk.kind)),
+        blk.register_forward_hook(mark(None)))]
+    start.record()
+    try:
+        out = fn(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    end.record()
+    torch.cuda.synchronize()
+    split = {}
+    for (kind, a), (_, b) in zip(marks[::2], marks[1::2]):
+        split[kind] = split.get(kind, 0.0) + a.elapsed_time(b)
+    return out, split, start.elapsed_time(end)
+
+
+def xlstm_forward(model, pm, cfg, tokens, first, trace):
+    """(b) One forward at (B, S) = ``tokens.shape``: finite logits of the
+    padded vocab; the time its mLSTM and sLSTM layers take and their
+    share of that call (``kind_split``); its time against
+    ``predict_model`` (the share of the
+    price each layer kind's rows take).  The ``first`` forward of a dtype
+    is timed by ``profiler.measure``, a later one, of seconds, by one call
+    (``calls_ms``); with ``trace``, where its device time goes
+    (``forward_trace``: a profiled forward at (8, 512) takes ~20 s to
+    read back, so only bf16's, where the host sets the pace, is
+    traced)."""
+    t0 = time.perf_counter()
+    B, S = tokens.shape
+    dname = cfg.compute_dtype
+    logits, split, split_ms = kind_split(model, model, tokens)
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    measured = profiler.measure(model, tokens) if first else \
+        calls_ms(model, tokens) / 1e3
+    total, rows = pm.predict_model(cfg, B, S, dtype=dname)
+    by_kind = {}
+    for r in rows:
+        kind = r.name.split(".")[0]
+        by_kind[kind] = by_kind.get(kind, 0.0) + r.seconds * 1e3
+    failed = [] if finite else ["logits not finite"]
+    failed += [] if shape == [B, S, model.padded_vocab] else [f"shape {shape}"]
+    rec = {"dtype": dname, "batch": B, "seq": S, "n_layers": cfg.n_layers,
+           "logits_shape": shape, "logits_finite": finite,
+           "measured_ms": measured * 1e3, "layer_ms_by_kind": split,
+           "split_call_ms": split_ms,
+           "layer_share_by_kind": {k: v / split_ms for k, v in split.items()},
+           "predicted_ms": total * 1e3,
+           "err_pct": 100 * abs(total - measured) / measured,
+           "predicted_ms_by_kind": by_kind,
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "timed_by": "profiler.measure" if first else "calls_ms",
+           "device_trace": forward_trace(model, tokens) if trace
+           else "not traced", "failed": failed}
+    rec["seconds"] = time.perf_counter() - t0
+    emit("xlstm_forward", **rec)
+    return rec
+
+
+def calls_ms(fn, *args):
+    """One call timed by CUDA events (after ``kind_split``'s call of the
+    same shape)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def rel_err(got, want, scale=None) -> float:
+    """max |got - want| / ``scale`` (by default max |want|), in float32."""
+    w = want.float()
+    scale = w.abs().max() if scale is None else scale
+    return float((got.float() - w).abs().max() / scale)
+
+
+def state_errs(cache, other):
+    """Per state tensor kind of the xLSTM layers (mLSTM C, n, m, conv;
+    sLSTM c, n, h, m): the largest over the layers of ``rel_err`` of
+    ``cache``'s against ``other``'s."""
+    out = {}
+    for i, kind in enumerate(cache_kinds(cache)):
+        names = ("C", "n", "m", "conv") if kind == C.MLSTM else \
+            ("c", "n", "h", "m")
+        for name, a, b in zip(names, cache.layer(i), other.layer(i)):
+            out[name] = max(out.get(name, 0.0), rel_err(a, b))
+    return out
+
+
+def cache_kinds(cache):
+    return [C.MLSTM if cache.C[i] is not None else C.SLSTM
+            for i in range(len(cache.C))]
+
+
+def xlstm_decode(model, pm, cfg, tokens):
+    """(c) The forward over all T tokens of ``tokens`` (B, T), each
+    layer's mixer input captured; a prefill of XLSTM_PROMPT, then T -
+    XLSTM_PROMPT decode steps eagerly and as a replayed CUDA graph: the
+    prefill's and each step's logits against the forward's at that
+    position (``rel_err`` over max |forward logits| from position
+    XLSTM_PROMPT - 1, as the JAX package's drift is read; within
+    XLSTM_STEP_TOL), the graph equal to the
+    eager steps bit for bit, no hand kernel launched, and the states after
+    the steps against a prefill of all the tokens (reported beside the JAX
+    package's XLSTM_REF_STATE_ERR).  Each layer alone (``xlstm_layers``):
+    in float32 within XLSTM_LAYER_TOL and XLSTM_LAYER_STATE_TOL, in bf16
+    reported.  (d) The middle
+    mLSTM layer's conv state left stale for the second step: the float32
+    layer check must reject that step; its bf16 error, its state error
+    after the steps and its effect on the whole model's logits are
+    reported.  Times both steps (the graph's is
+    the one predicted) against ``enumerate_decode_ops``'s price and the
+    bytes floor: the weights read and every C read and written once.  The
+    cache held against ``kv_cache_bytes``."""
+    t0 = time.perf_counter()
+    dname = cfg.compute_dtype
+    B, T = tokens.shape
+    P, n = XLSTM_PROMPT, T - XLSTM_PROMPT
+    inputs = {}
+    hooks = [getattr(blk, blk._mixer()).register_forward_pre_hook(
+        lambda m, a, i=i: inputs.__setitem__(i, a[0]))
+        for i, blk in enumerate(model.blocks)]
+    try:
+        want = model(tokens)[:, P - 1:].float().clone()
+    finally:
+        for h in hooks:
+            h.remove()
+    scale = want.abs().max()
+    at = lambda x, t: rel_err(x, want[:, t], scale)
+    last, cache = model.prefill(tokens[:, :P])
+    prefill_err = at(last, 0)
+    start = cache.clone()
+    before = hand_launches()
+    eager, errs = [], []
+    for t in range(n):
+        logits, _ = model.decode_step(tokens[:, P + t], cache)
+        eager.append(logits.clone())
+        errs.append(at(logits, t + 1))
+    seeded = model.prefill(tokens)[1]
+    states = state_errs(cache, seeded)
+    del seeded
+    kinds = cache_kinds(cache)
+    fault_layer = [i for i, k in enumerate(kinds) if k == C.MLSTM][
+        kinds.count(C.MLSTM) // 2]
+    stale = start.clone()
+    model.decode_step(tokens[:, P], stale)
+    conv = stale.conv[fault_layer]
+    conv.copy_(start.conv[fault_layer])
+    fault_model_err = at(model.decode_step(tokens[:, P + 1], stale)[0], 2)
+    del stale, conv
+    graph = DecodeGraph(model, start).load(start)
+    graph_errs, bitwise = [], True
+    for t in range(n):
+        logits = graph(tokens[:, P + t])
+        graph_errs.append(at(logits, t + 1))
+        bitwise = bitwise and bool(torch.equal(logits, eager[t]))
+    in_step = launches_since(before)
+    del eager
+    layers = xlstm_layers(model, cfg, inputs, P, n, fault_layer)
+    inputs.clear()
+    tok = tokens[:, T - 1].contiguous()
+
+    def eager_step():
+        return model.decode_step(tok, cache)
+
+    eager_s = profiler.measure(eager_step)
+    graph_s = profiler.measure(graph, tok)
+    graph_trace = forward_trace(graph, tok)
+    predicted, rows = pm.predict_ops(og.enumerate_decode_ops(cfg, B, T,
+                                                             dtype=dname))
+    weight_bytes = sum(p.nbytes for p in model.parameters())
+    c_bytes = sum(t.nbytes for t in cache.C if t is not None)
+    floor_ms = (weight_bytes + 2 * c_bytes) / H100_SXM.hbm_bw * 1e3
+    priced = og.kv_cache_bytes(cfg, B, T, dname)
+    ltol, stol = XLSTM_LAYER_TOL, XLSTM_LAYER_STATE_TOL
+    tol = XLSTM_STEP_TOL[dname]
+    checks = {"prefill_logits_ok": prefill_err <= tol,
+              "logits_ok": max(errs + graph_errs) <= tol,
+              "graph_bitwise": bitwise,
+              "no_hand_launch_in_step": not in_step}
+    if dname == "float32":
+        checks.update({
+            "layer_steps_ok": layers["step_rel_err"] <= ltol,
+            "layer_states_ok": max(layers["state_rel_err"].values()) <= stol,
+            "planted_fault_caught": layers["fault"]["step_rel_err"] > ltol})
+    rec = {"dtype": dname, "batch": B, "prompt": P, "steps": n,
+           "prefill_logits_rel_err": prefill_err,
+           "logits_rel_err": max(errs), "graph_logits_rel_err":
+           max(graph_errs), "logits_rel_err_by_step": errs,
+           "logits_tol": tol, "state_rel_err": states,
+           "ref_state_rel_err": XLSTM_REF_STATE_ERR[dname],
+           "layers": layers, "layer_tol": ltol if dname == "float32"
+           else "reported", "layer_state_tol": stol if dname == "float32"
+           else "reported",
+           "planted_fault_layer": fault_layer,
+           "planted_fault_rel_err": layers["fault"]["step_rel_err"],
+           "planted_fault_state_rel_err": layers["fault"]["state_rel_err"],
+           "planted_fault_model_rel_err": fault_model_err,
+           "hand_launches_in_step": in_step,
+           "cache_bytes": cache.nbytes, "kv_cache_bytes_predictor": priced,
+           "cache_over_priced": cache.nbytes / priced,
+           "c_state_bytes": c_bytes, "weight_bytes": weight_bytes,
+           "eager_ms": eager_s * 1e3, "graph_ms": graph_s * 1e3,
+           "predicted_step_ms": predicted * 1e3,
+           "err_pct": 100 * abs(predicted - graph_s) / graph_s,
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "bytes_floor_ms": floor_ms, "floor_share": floor_ms
+           / (graph_s * 1e3), "graph_trace": graph_trace, "checks": checks,
+           "failed": [k for k, ok in checks.items() if not ok],
+           "seconds": time.perf_counter() - t0}
+    emit("xlstm_decode", **rec)
+    del graph, cache, start
+    return rec
+
+
+def xlstm_layers(model, cfg, inputs, P, n, fault_layer):
+    """Each layer's mixer alone on ``inputs[i]``, the normed input the
+    forward gave it (B, P + n, d): its forward over all of them, a prefill
+    of P, then n steps on the rest, eagerly.  Returns the largest step
+    error (``rel_err`` against the forward's outputs over their max from
+    position P) and
+    each state's (against the forward's state) over the layers, the error
+    by layer, and layer ``fault_layer``'s steps with the conv state put
+    back after the first step (stale for the second): the second step's
+    error and the largest of its states' after the steps."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    by_layer, states, fault = [], {}, None
+    for i, blk in enumerate(model.blocks):
+        mixer = getattr(blk, blk._mixer())
+        h = inputs[i]
+        y_all, full = mixer(h, cdt)
+        ref = y_all[:, P:].float()
+        scale = ref.abs().max()
+        del y_all
+        _, state = mixer(h[:, :P], cdt)
+        start = tuple(t.clone() for t in state) if i == fault_layer else None
+        errs = [rel_err(mixer.step(h[:, P + t:P + t + 1], *state, cdt)[:, 0],
+                        ref[:, t], scale) for t in range(n)]
+        by_layer.append(max(errs))
+        names = ("C", "n", "m", "conv") if blk.kind == C.MLSTM else \
+            ("c", "n", "h", "m")
+        for name, a, b in zip(names, state, full):
+            states[name] = max(states.get(name, 0.0), rel_err(a, b))
+        if start is not None:
+            conv, errs = start[3].clone(), []
+            for t in range(n):
+                y = mixer.step(h[:, P + t:P + t + 1], *start, cdt)[:, 0]
+                if t == 0:
+                    start[3].copy_(conv)
+                errs.append(rel_err(y, ref[:, t], scale))
+            fault = {"step_rel_err": errs[1], "state_rel_err": max(
+                rel_err(a, b) for a, b in zip(start, full))}
+    return {"step_rel_err": max(by_layer), "state_rel_err": states,
+            "step_rel_err_by_layer": by_layer, "fault": fault}
+
+
+def xlstm_serve(pm):
+    """(e) The ``serve`` launcher's engine at XLSTM_SERVE_ARGS: 8 prompts
+    of 512 tokens, 16 new each, in two waves of 4, greedy, bf16, its
+    decode step a CUDA graph.  Fails unless every request ends with its 16
+    tokens and every served token equals eager steps' (``check_served``).
+    Prices the prompt and the decode steps over the contexts they ran
+    at."""
+    args = serve_launcher.parse_args(XLSTM_SERVE_ARGS)
+    cfg = dataclasses.replace(cfg_registry.get(XLSTM),
+                              compute_dtype=args.compute_dtype)
+    engine, done = serve_launcher.serve(args)
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    st = engine.stats
+    failed = [] if sorted({len(r.out_tokens) for r in done}) == [
+        args.max_new] else ["tokens each"]
+    failed += [f"requests unlike the eager steps {served['mismatched']}"] \
+        if served["mismatched"] else []
+    rec = {**out, "requests": len(done), "prefills": st.prefills,
+           "graphs": len(engine._graphs),
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+           "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+           "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "wall_s": engine.wall_s, "failed": failed}
+    emit("xlstm_serve", **rec)
+    del engine
+    return rec
+
+
 def phase_paper(store, grid):
     """The paper's tables on the card, on the store phase ``calibrate``
     wrote: (a) NeuSight trained per dtype (training seconds, in-sample
@@ -3398,11 +3860,44 @@ def bound(nbytes, flops, dname="bfloat16"):
 
 
 def timed(run, *args):
-    """One call's ms (CUDA events, ``profiler.measure``) and its device
-    ms (``torch.profiler``)."""
-    dev = device_ms(run, *args)
+    """One call's ms (CUDA events around back-to-back calls,
+    ``profiler.measure``), its device ms (a replayed CUDA graph,
+    ``device_ms``) and its host ms (``host_ms``)."""
     return {"ms": profiler.measure(run, *args) * 1e3,
-            "device_ms": "not measured" if dev is None else dev}
+            "device_ms": device_ms(run, *args),
+            "host_ms": host_ms(run, *args)}
+
+
+def device_ms_faults(lines):
+    """The ``device_ms`` readings of the ``kernels`` line that cannot be
+    right: one below its row's ``bound_ms`` (past the card's peak), or
+    below half its CUDA-events ``ms`` where the host enqueues a call in
+    under half of that ``ms`` (so the device, not the host, sets the
+    pace).  Config rows take their line's bound; library readings too."""
+    bad = []
+
+    def visit(row, bound, where):
+        bound = row.get("bound_ms", bound)
+        for dev, ms, host in (("device_ms", "ms", "host_ms"),
+                              ("library_device_ms", "library_ms",
+                               "library_host_ms")):
+            if dev not in row:
+                continue
+            d, m, h = row[dev], row[ms], row[host]
+            if bound is not None and d < bound:
+                bad.append(f"{where} {dev} {d} below the bound {bound}")
+            if d < 0.5 * m and h < 0.5 * m:
+                bad.append(f"{where} {dev} {d} below half of {ms} {m} "
+                           f"(host {h})")
+        for key, val in row.items():
+            subs = val if isinstance(val, list) else [val]
+            for i, sub in enumerate(subs):
+                if isinstance(sub, dict):
+                    visit(sub, bound, f"{where}/{key}[{i}]")
+
+    for line in lines:
+        visit(line, None, line["name"])
+    return bad
 
 
 def kernel_lines(by_path, mm_pick):
@@ -3453,7 +3948,8 @@ def kernel_lines(by_path, mm_pick):
                 "max_abs_err": max(c["max_abs_err"] for c in configs),
                 "plain_ms": profiler.measure(plain, *args) * 1e3,
                 "bound_ms": bms, "bound_by": by, "library_ms": libt["ms"],
-                "library_device_ms": libt["device_ms"], "configs": configs}
+                "library_device_ms": libt["device_ms"],
+                "library_host_ms": libt["host_ms"], "configs": configs}
 
     def flash_case(arch, B, Sq, Skv, dt, causal, window=None):
         """One flash call as model ``arch`` makes it: (B, Sq) queries of
@@ -3497,7 +3993,8 @@ def kernel_lines(by_path, mm_pick):
                 "plain_ms": profiler.measure(
                     lambda *x: plain(fcfg, *x), *args) * 1e3,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
-                "library_device_ms": lib["device_ms"]}
+                "library_device_ms": lib["device_ms"],
+                "library_host_ms": lib["host_ms"]}
 
     m, n, k = MM_SHAPE
     a = torch.randn(m, k, generator=gen, device="cuda").to(bf)
@@ -3530,9 +4027,11 @@ def kernel_lines(by_path, mm_pick):
         "ok": all(c["ok"] for c in configs),
         "config": head["config"], "shape": [m, n, k], "dtype": "bfloat16",
         "ms": head["ms"], "device_ms": head["device_ms"],
+        "host_ms": head["host_ms"],
         "plain_ms": profiler.measure(mk.matmul_plain, a, b) * 1e3,
         "bound_ms": bms, "bound_by": by,
         "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+        "library_host_ms": lib["host_ms"],
         "configs": configs,
         "float32": {**float32("mm_128x128x128", f32_configs, mk.matmul_plain,
                               (a32, b32), torch.matmul, (a32, b32), nbytes,
@@ -3586,9 +4085,11 @@ def kernel_lines(by_path, mm_pick):
         "ok": all(x["ok"] for x in configs),
         "config": head["config"], "shape": [B, S, H, Hkv, hd],
         "dtype": "bfloat16", "ms": head["ms"], "device_ms": head["device_ms"],
+        "host_ms": head["host_ms"],
         "plain_ms": profiler.measure(plain, q, kk, vv) * 1e3,
         "bound_ms": bms, "bound_by": by,
         "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+        "library_host_ms": lib["host_ms"],
         "configs": configs,
         "float32": float32(
             pick32.name, f32_configs,
@@ -3628,6 +4129,10 @@ def kernel_lines(by_path, mm_pick):
         if not all(c["ok"] for c in cases):
             raise AssertionError(f"flash {key} cases: max errs "
                                  f"{[c['max_abs_err'] for c in cases]}")
+    bad = device_ms_faults(lines)
+    if bad:
+        raise AssertionError(f"device_ms readings that cannot be right: "
+                             f"{bad}")
     return lines
 
 
@@ -3690,9 +4195,12 @@ def card_filling_matmul(gen, timed, tol):
     flops = 2.0 * m * n * k
     tflops = lambda ms: flops / (ms * 1e-3) / 1e12 if isinstance(ms, float) \
         else "not measured"
+    bms, by = bound(4 * (m * k + k * n + m * n), flops, "float32")
     return {"config": cfg.name, "shape": [m, n, k], "max_abs_err": err,
-            "ok": ok, **t, "tflops": tflops(t["device_ms"]),
+            "ok": ok, **t, "bound_ms": bms, "bound_by": by,
+            "tflops": tflops(t["device_ms"]),
             "library_ms": lib["ms"], "library_device_ms": lib["device_ms"],
+            "library_host_ms": lib["host_ms"],
             "library_tflops": tflops(lib["device_ms"]),
             "peak_share": (tflops(t["device_ms"]) * 1e12
                            / H100_SXM.peak("float32")
@@ -3764,9 +4272,15 @@ def main() -> int:
     moe = phase_moe(store)
     by_path["moe"] = hand_launches()
     reset_launches()
+    xlstm = phase_xlstm(store)
+    by_path["xlstm"] = hand_launches()
+    reset_launches()
     paper = phase_paper(store, grid)
     by_path["paper"] = hand_launches()
     emit("path_launches", **by_path)
+    if any(by_path["xlstm"].values()):
+        raise AssertionError(f"the xlstm path launched a hand kernel: "
+                             f"{by_path['xlstm']}")
     for path in ("decode", "serve", "grid", "schedule", "service", "hybrid",
                  "encdec", "moe", "paper"):
         if by_path[path]["flash_attention"] == 0:
@@ -3787,7 +4301,8 @@ def main() -> int:
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
-                  encdec=encdec, moe=moe, paper=paper, kernels=kernels,
+                  encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
+                  kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -3,8 +3,10 @@ fresh and after each step of ``chip_smoke.py``'s phase ``paper``.
 
     python3 scripts/profiler_drift.py
 
-``chip_smoke.py``'s ``device_ms`` (the sum of a trace's device events
-over 20 calls) against ``profiler.measure`` (CUDA events around
+``profiler_device_ms`` (the sum of a trace's device events over 20 calls,
+divided by the calls made: how ``chip_smoke.py`` read ``device_ms`` until
+it timed a replayed CUDA graph instead) and ``chip_smoke.py``'s
+``device_ms`` against ``profiler.measure`` (CUDA events around
 back-to-back calls) for one float32 GEMM at the card-filling 2048 x 4224 x
 4096: ``torch.matmul`` (cuBLAS) and the hand ``mm_128x128x128``, with the
 count of device events the 20 calls left in the trace.  Probed in a fresh
@@ -37,16 +39,17 @@ from repro_torch.core.baselines import neusight as ns  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
 
 
-def device_events(fn, *args, n=20):
-    """Device events a trace of ``n`` calls holds (``device_ms``'s
-    window)."""
+def profiled(fn, *args, n=20):
+    """(device ms a call, device events) of a trace of ``n`` calls: the
+    events' summed time divided by ``n``, the calls made."""
     fn(*args)
     torch.cuda.synchronize()
     with cs.profile_cuda() as prof:
         for _ in range(n):
             fn(*args)
         torch.cuda.synchronize()
-    return sum(calls for calls, _ in cs.device_rows(prof).values())
+    rows = cs.device_rows(prof).values()
+    return (sum(t for _, t in rows) / n, sum(calls for calls, _ in rows))
 
 
 def main() -> int:
@@ -62,12 +65,15 @@ def main() -> int:
     hand = lambda a, b: mk.matmul_kernel(a, b, cfg)
 
     def probe(tag):
+        lib_ms, lib_events = profiled(torch.matmul, a, b)
         print(json.dumps({
             "probe": tag, "shape": [m, n, k],
             "torch_matmul_events_ms": profiler.measure(torch.matmul, a, b) * 1e3,
+            "torch_matmul_profiler_device_ms": lib_ms,
+            "torch_matmul_device_events": lib_events,
             "torch_matmul_device_ms": cs.device_ms(torch.matmul, a, b),
-            "torch_matmul_device_events": device_events(torch.matmul, a, b),
             "hand_events_ms": profiler.measure(hand, a, b) * 1e3,
+            "hand_profiler_device_ms": profiled(hand, a, b)[0],
             "hand_device_ms": cs.device_ms(hand, a, b)}), flush=True)
 
     probe("fresh")

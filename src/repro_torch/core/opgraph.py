@@ -34,15 +34,11 @@ from repro_torch.core.collectives import CollectiveOp, dtype_bytes
 from repro_torch.core.cost import cost_of
 from repro_torch.core.memory_model import assoc_scan, seq_scan
 from repro_torch.models.layers import is_gated, pad_vocab
+from repro_torch.models.recurrent import slstm_ff
 
 PREFILL = "prefill"
 DECODE = "decode"
 PHASES = (PREFILL, DECODE)
-
-
-def slstm_ff(cfg: C.ModelConfig) -> int:
-    ff = int(round(4 * cfg.d_model / 3))
-    return ((ff + 127) // 128) * 128
 
 
 @dataclasses.dataclass

@@ -6,11 +6,15 @@ package's ``launch/serve.py``, plus ``--device``).
       --requests 8 --max-new 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
       --prompt-len 64 --max-new 32 --compute-dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+      --prompt-len 512 --compute-dtype bfloat16
 
 Runs on the card unless ``--device cpu``; weights are random from
 ``--seed``.  A model that takes a context (whisper-small's 1,500 stub
 frames, llama-3.2-vision's patches) gets the engine's stub context each
-wave.  The weights are stored in the compute dtype, drawn and cast one
+wave.  The left-padded prompts of a recurrent model (recurrentgemma-2b,
+xlstm-1.3b) run through its recurrence, the padding included, as in the
+JAX engine.  The weights are stored in the compute dtype, drawn and cast one
 part at a time (``models.registry.build(dtype=)``:
 the values the per-call cast gives), so moonshot-v1-16b-a3b's 57.8 GB of
 bf16 weights are built on one 80 GB card.

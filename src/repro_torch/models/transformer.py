@@ -1,5 +1,6 @@
 """Decoder stack: the dense ``ATTN`` models, the hybrid ones (``RGLRU``
-and sliding-window ``LOCAL_ATTN`` blocks, recurrentgemma-2b) and the
+and sliding-window ``LOCAL_ATTN`` blocks, recurrentgemma-2b), the xLSTM
+ones (``MLSTM`` and ``SLSTM`` blocks, xlstm-1.3b) and the
 encoder–decoder ones (``CROSS_ATTN`` blocks over a context: whisper-small,
 whose context is its encoder's output over stub frame embeddings, and
 llama-3.2-vision, whose context is stub patch embeddings) in the JAX
@@ -14,8 +15,8 @@ period ``i // len(block_pattern)``, sub-block ``i % len(block_pattern)``,
 of kind ``cfg.layer_kinds[i]``; the encoder's layer ``i`` is period ``i``
 of ``encoder.blocks``).  A config with ``moe`` routes every decoder
 block's FFN through capacity-dispatch experts (``models/moe.py``; the
-forward returns logits only, ``moe_ffn`` gives the aux losses).  The
-xLSTM block kinds raise ``NotImplementedError``.
+forward returns logits only, ``moe_ffn`` gives the aux losses).  A
+block kind outside ``PORTED`` raises ``NotImplementedError``.
 
 ``decode_step`` updates its ``KVCache`` in place (the JAX step returns a
 new cache; XLA donates the old one's buffers) and reads the position from
@@ -36,16 +37,20 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
-PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU, C.CROSS_ATTN, C.ENC_ATTN)
-_LATER = {C.MLSTM: "the xLSTM model", C.SLSTM: "the xLSTM model"}
+PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU, C.CROSS_ATTN, C.ENC_ATTN,
+          C.MLSTM, C.SLSTM)
+_XLSTM = (C.MLSTM, C.SLSTM)
+# the ``KVCache`` lists of a recurrent layer's state, in ``Block.forward``'s
+# and ``KVCache.layer``'s order
+_STATE_FIELDS = {C.RGLRU: ("h", "conv"), C.MLSTM: ("C", "n", "m", "conv"),
+                 C.SLSTM: ("c", "n", "h", "m")}
 
 
 def check_supported(cfg: C.ModelConfig):
     for kind in set(cfg.layer_kinds):
         if kind not in PORTED:
             raise NotImplementedError(
-                f"{cfg.name}: {kind!r} blocks are ported with the slice for "
-                f"{_LATER.get(kind, 'their model kind')}")
+                f"{cfg.name}: {kind!r} blocks have no port")
 
 
 class Block(nn.Module):
@@ -54,7 +59,8 @@ class Block(nn.Module):
     ``CROSS_ATTN`` block then cross attention over the context (``ln_x``,
     ``xattn``); then the (optional) MLP, or under ``cfg.moe`` the MoE FFN
     (``moe``) outside the encoder; each with a residual (the JAX package's
-    ``apply_block`` for these kinds)."""
+    ``apply_block``).  An xLSTM block is ``ln1``, the mLSTM (``mlstm``) or
+    sLSTM (``slstm_blk``) block and the residual: no ``ln2``, no FFN."""
 
     def __init__(self, cfg: C.ModelConfig, kind: str, *, device=None):
         super().__init__()
@@ -62,6 +68,13 @@ class Block(nn.Module):
         self.window = cfg.sliding_window if kind == C.LOCAL_ATTN else None
         self.causal = kind != C.ENC_ATTN
         self.ln1 = L.RMSNorm(cfg.d_model, device=device)
+        self.ln2 = self.mlp = self.moe = None
+        if kind == C.MLSTM:
+            self.mlstm = R.MLSTMBlock(cfg, device=device)
+            return
+        if kind == C.SLSTM:
+            self.slstm_blk = R.SLSTMBlock(cfg, device=device)
+            return
         if kind == C.RGLRU:
             self.rec = R.RGLRUBlock(cfg, device=device)
         else:
@@ -69,7 +82,6 @@ class Block(nn.Module):
         if kind == C.CROSS_ATTN:
             self.ln_x = L.RMSNorm(cfg.d_model, device=device)
             self.xattn = A.Attention(cfg, cross=True, device=device)
-        self.ln2 = self.mlp = self.moe = None
         if cfg.d_ff > 0:
             self.ln2 = L.RMSNorm(cfg.d_model, device=device)
             if cfg.moe is not None and kind != C.ENC_ATTN:
@@ -79,8 +91,12 @@ class Block(nn.Module):
                 self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act,
                                  device=device)
 
+    def _mixer(self):
+        return {C.RGLRU: "rec", C.MLSTM: "mlstm",
+                C.SLSTM: "slstm_blk"}.get(self.kind, "attn")
+
     def reset(self, gen: torch.Generator):
-        (self.rec if self.kind == C.RGLRU else self.attn).reset(gen)
+        getattr(self, self._mixer()).reset(gen)
         if self.kind == C.CROSS_ATTN:
             self.xattn.reset(gen)
         if self.mlp is not None:
@@ -91,9 +107,13 @@ class Block(nn.Module):
     def forward(self, x, cfg: C.ModelConfig, cdt, rope=None, ctx=None):
         """Returns (x, state): the attention's post-RoPE (k, v), followed in
         a ``CROSS_ATTN`` block by the context's (k, v), or the RG-LRU's (h,
-        conv) after the sequence, for the decode cache.  ``ctx``: the
-        context (B, Lx, d) of a ``CROSS_ATTN`` block."""
+        conv), the mLSTM's (C, n, m, conv) or the sLSTM's (c, n, h, m)
+        after the sequence, for the decode cache.  ``ctx``: the context (B,
+        Lx, d) of a ``CROSS_ATTN`` block."""
         h = self.ln1(x, cfg.norm_eps)
+        if self.kind in _XLSTM:
+            y, state = getattr(self, self._mixer())(h, cdt)
+            return x + y, state
         if self.kind == C.RGLRU:
             y, state = self.rec(h, cdt)
         else:
@@ -110,9 +130,11 @@ class Block(nn.Module):
     def decode(self, x, state, pos, slots, cfg: C.ModelConfig, cdt, rope):
         """One token (``apply_block_decode``).  ``state``: this layer's
         (k, v) caches, and a ``CROSS_ATTN`` block's context (k, v) after
-        them, or (h, conv); ``slots``: (write slot, slot positions) of an
-        attention layer's cache."""
+        them, or its recurrent state (``KVCache.layer``); ``slots``: (write
+        slot, slot positions) of an attention layer's cache."""
         h = self.ln1(x, cfg.norm_eps)
+        if self.kind in _XLSTM:
+            return x + getattr(self, self._mixer()).step(h, *state, cdt)
         if self.kind == C.RGLRU:
             y = self.rec.step(h, *state, cdt)
         else:
@@ -138,9 +160,10 @@ class Block(nn.Module):
 def cast_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Store ``module``'s matmul and embedding weights (and biases) and its
     MoE experts in ``dtype`` once, in place, instead of casting them on
-    every call; norm scales, the RG-LRU's conv taps and Λ, and the weights
-    used in f32 (``keep_f32``: the RG-LRU's gates, the MoE router) stay
-    f32.  The values are those the per-call cast produces."""
+    every call; norm scales, the recurrent blocks' conv taps and Λ, and
+    the weights used in f32 (``keep_f32``: the RG-LRU's gates, the mLSTM's
+    ``w_if``, the sLSTM's ``wx`` and ``rh``, the MoE router) stay f32.
+    The values are those the per-call cast produces."""
     for mod in module.modules():
         if (isinstance(mod, (L.Linear, L.Embedding, M.Experts))
                 and not getattr(mod, "keep_f32", False)):
@@ -156,28 +179,44 @@ class KVCache:
     ring of min(window, capacity) slots for sliding-window attention; an
     RG-LRU layer's h (B, dl) f32 and conv window (B, width - 1, dl); a
     ``CROSS_ATTN`` layer's context K and V besides (``xk``, ``xv``: (B,
-    Hkv, Lx, hd), written at the prefill, read by every step).  The lists
-    hold None where a layer has no such tensor.  ``pos``, the position of
-    the next token, is a one-element int64 tensor on the caches' device;
-    ``capacity``, the positions a decode may reach, is fixed when the
-    cache is made."""
+    Hkv, Lx, hd), written at the prefill, read by every step); an mLSTM
+    layer's matrix memory C (B, H, hd, hd), normaliser n (B, H, hd) and
+    stabiliser m (B, H), all f32, and its conv window (B, width - 1, di);
+    an sLSTM layer's c, n, h and m, each (B, d) f32.  The lists hold None
+    where a layer has no such tensor (``n`` and ``m`` serve both xLSTM
+    kinds).  ``pos``, the position of the next token, is a one-element
+    int64 tensor on the caches' device; ``capacity``, the positions a
+    decode may reach, is fixed when the cache is made."""
     k: List[Optional[torch.Tensor]]
     v: List[Optional[torch.Tensor]]
     h: List[Optional[torch.Tensor]]
     conv: List[Optional[torch.Tensor]]
     xk: List[Optional[torch.Tensor]]
     xv: List[Optional[torch.Tensor]]
+    C: List[Optional[torch.Tensor]]
+    c: List[Optional[torch.Tensor]]
+    n: List[Optional[torch.Tensor]]
+    m: List[Optional[torch.Tensor]]
     pos: torch.Tensor
     capacity: int
 
+    def _lists(self):
+        return (self.k, self.v, self.h, self.conv, self.xk, self.xv, self.C,
+                self.c, self.n, self.m)
+
     def tensors(self) -> List[torch.Tensor]:
         """Every state tensor, ``pos`` last."""
-        return [t for t in self.k + self.v + self.h + self.conv + self.xk
-                + self.xv if t is not None] + [self.pos]
+        return [t for ts in self._lists() for t in ts
+                if t is not None] + [self.pos]
 
     def layer(self, i: int):
         """Layer ``i``'s state: (k, v), (k, v, xk, xv) for a cross-attention
-        layer, or (h, conv) for an RG-LRU layer."""
+        layer, (h, conv) for an RG-LRU layer, (C, n, m, conv) for an mLSTM
+        layer or (c, n, h, m) for an sLSTM layer."""
+        if self.C[i] is not None:
+            return self.C[i], self.n[i], self.m[i], self.conv[i]
+        if self.c[i] is not None:
+            return self.c[i], self.n[i], self.h[i], self.m[i]
         if self.h[i] is not None:
             return self.h[i], self.conv[i]
         if self.xk[i] is not None:
@@ -198,10 +237,15 @@ class KVCache:
             dst.copy_(src)
         return self
 
+    def put(self, i: int, fields, tensors):
+        """Set layer ``i``'s entry of each list named in ``fields``."""
+        for name, t in zip(fields, tensors):
+            getattr(self, name)[i] = t
+
     def clone(self) -> "KVCache":
-        c = lambda ts: [None if t is None else t.clone() for t in ts]
-        return KVCache(c(self.k), c(self.v), c(self.h), c(self.conv),
-                       c(self.xk), c(self.xv), self.pos.clone(), self.capacity)
+        return KVCache(*([None if t is None else t.clone() for t in ts]
+                         for ts in self._lists()),
+                       self.pos.clone(), self.capacity)
 
 
 class Transformer(nn.Module):
@@ -351,10 +395,10 @@ class Transformer(nn.Module):
         attention layers hold the prompt's post-RoPE K/V in the compute
         dtype, zero-padded to the capacity; sliding-window layers the last
         min(W, S) positions of their ring of W = min(window, capacity)
-        slots, each at slot position mod W (``_seed_cache``); RG-LRU layers
-        their state after the prompt; cross-attention layers besides the
-        context's K/V, unpadded.  Only the last position is normed and
-        unembedded.  ``ctx_embed`` as in ``forward``."""
+        slots, each at slot position mod W (``_seed_cache``); RG-LRU, mLSTM
+        and sLSTM layers their state after the prompt; cross-attention
+        layers besides the context's K/V, unpadded.  Only the last position
+        is normed and unembedded.  ``ctx_embed`` as in ``forward``."""
         self._no_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
@@ -365,30 +409,32 @@ class Transformer(nn.Module):
         x = self.embed(tokens, cdt)
         positions = torch.arange(S, device=dev)[None, :]
         rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        n_layers = len(self.blocks)
-        ks, vs, hs, convs, xks, xvs = ([None] * n_layers for _ in range(6))
+        cache = self._empty_cache(cap, torch.full((1,), S, dtype=torch.int64,
+                                                  device=dev))
         for i, blk in enumerate(self.blocks):
             x, state = blk(x, cfg, cdt, rope, ctx)
-            if blk.kind == C.RGLRU:
-                hs[i], convs[i] = state
+            if blk.kind in _STATE_FIELDS:
+                cache.put(i, _STATE_FIELDS[blk.kind], state)
                 continue
             W = cap if blk.window is None else self._ring(cap)
-            ks[i], vs[i] = A.seed_kv_cache(*state[:2], W)
+            cache.put(i, ("k", "v"), A.seed_kv_cache(*state[:2], W))
             if blk.kind == C.CROSS_ATTN:
-                xks[i], xvs[i] = (t.transpose(1, 2).contiguous()
-                                  for t in state[2:])
+                cache.put(i, ("xk", "xv"), (t.transpose(1, 2).contiguous()
+                                            for t in state[2:]))
         x = self.final_norm(x[:, -1:], cfg.norm_eps)
-        logits = self._head().unembed(x, cdt)[:, 0]
-        pos = torch.full((1,), S, dtype=torch.int64, device=dev)
-        return logits, KVCache(ks, vs, hs, convs, xks, xvs, pos, cap)
+        return self._head().unembed(x, cdt)[:, 0], cache
+
+    def _empty_cache(self, capacity: int, pos: torch.Tensor) -> KVCache:
+        n = len(self.blocks)
+        return KVCache(*([None] * n for _ in range(10)), pos, capacity)
 
     def decode_step(self, token: torch.Tensor, cache: KVCache):
         """token (B,) int -> (logits (B, Vp), cache): writes the token's K/V
         at slot ``pos`` of every global attention layer (attending over all
         its slots, those past ``pos`` masked) and at slot ``pos`` mod W of
         every ring (``A.ring_slots``), attends over every cross-attention
-        layer's context K/V, advances every RG-LRU state and ``pos``, all in
-        place and on the device (no host read of ``pos``: the step is
+        layer's context K/V, advances every recurrent state and ``pos``, all
+        in place and on the device (no host read of ``pos``: the step is
         graph-capturable).  The caller keeps ``pos`` below the capacity."""
         self._no_grad_on_card(token)
         cfg = self.cfg
@@ -410,26 +456,31 @@ class Transformer(nn.Module):
                    dtype=torch.bfloat16) -> KVCache:
         """Zeroed caches of capacity ``seq_len`` on the model's device
         (``init_layer_cache``: rings of min(window, seq_len) slots, RG-LRU
-        states with h in f32, cross-attention layers' context K/V of
-        ``cross_attn_context_len`` slots), positioned at ``pos`` (default
-        seq_len - 1: 'a KV cache of seq_len')."""
+        states with h in f32, mLSTM and sLSTM states as before a first
+        token with the mLSTM's conv window in ``dtype``, cross-attention
+        layers' context K/V of ``cross_attn_context_len`` slots),
+        positioned at ``pos`` (default seq_len - 1: 'a KV cache of
+        seq_len')."""
         cfg = self.cfg
         dev = self.embed.w.device
-        n_layers = len(self.blocks)
-        ks, vs, hs, convs, xks, xvs = ([None] * n_layers for _ in range(6))
+        p = seq_len - 1 if pos is None else pos
+        cache = self._empty_cache(seq_len, torch.full(
+            (1,), p, dtype=torch.int64, device=dev))
         for i, blk in enumerate(self.blocks):
             if blk.kind == C.RGLRU:
-                hs[i], convs[i] = R.init_rglru_cache(cfg, batch,
-                                                     dtype=dtype, device=dev)
+                state = R.init_rglru_cache(cfg, batch, dtype=dtype, device=dev)
+            elif blk.kind == C.MLSTM:
+                state = R.init_mlstm_cache(cfg, batch, dtype=dtype, device=dev)
+            elif blk.kind == C.SLSTM:
+                state = R.init_slstm_cache(cfg, batch, device=dev)
+            else:
+                cache.put(i, ("k", "v"), A.init_kv_cache(
+                    cfg, batch, seq_len, window=blk.window, dtype=dtype,
+                    device=dev))
+                if blk.kind == C.CROSS_ATTN:
+                    cache.put(i, ("xk", "xv"), A.init_kv_cache(
+                        cfg, batch, cfg.cross_attn_context_len, dtype=dtype,
+                        device=dev))
                 continue
-            ks[i], vs[i] = A.init_kv_cache(cfg, batch, seq_len,
-                                           window=blk.window, dtype=dtype,
-                                           device=dev)
-            if blk.kind == C.CROSS_ATTN:
-                xks[i], xvs[i] = A.init_kv_cache(
-                    cfg, batch, cfg.cross_attn_context_len, dtype=dtype,
-                    device=dev)
-        p = seq_len - 1 if pos is None else pos
-        return KVCache(ks, vs, hs, convs, xks, xvs,
-                       torch.full((1,), p, dtype=torch.int64, device=dev),
-                       seq_len)
+            cache.put(i, _STATE_FIELDS[blk.kind], state)
+        return cache

@@ -2,7 +2,8 @@
 (``convert.from_jax_params``) and the same numpy inputs from a seed, at
 ``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini``, the hybrid
 ``reduced("recurrentgemma-2b", n_layers=5)`` (RG-LRU and sliding-window
-layers; its ring wraps in ``tests/test_torch_recurrent.py``) and the
+layers; its ring wraps in ``tests/test_torch_recurrent.py``), the xLSTM
+``reduced("xlstm-1.3b")`` (mLSTM and sLSTM layers) and the
 encoder–decoder ``reduced("whisper-small")`` and
 ``reduced("llama-3.2-vision-11b")`` (cross attention over the same numpy
 context on both sides).
@@ -50,9 +51,12 @@ CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
                                                           n_layers=5),
+         "xlstm-1.3b-reduced": lambda m: m.reduced("xlstm-1.3b"),
          "whisper-small-reduced": lambda m: m.reduced("whisper-small"),
          "llama-3.2-vision-reduced": lambda m: m.reduced(
              "llama-3.2-vision-11b")}
+# the cases whose decode step prices an attention read (xLSTM has none)
+ATTENTION_CASES = [n for n in CASES if not n.startswith("xlstm")]
 NAMES = list(jcr.ARCH_NAMES) + list(jcr.PAPER_MODELS)
 CTXS = (1, 512, 4096)
 
@@ -190,8 +194,9 @@ def _jax_layer_cache(jcfg, jcache, i):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_prefill_seeds_the_jax_cache(name):
     """The seeded caches hold the JAX package's post-RoPE K/V (head-major),
-    zeros past the prompt, at the capacity asked for; an RG-LRU layer its
-    (h, conv) state; a cross-attention layer the context's K/V besides."""
+    zeros past the prompt, at the capacity asked for; a recurrent layer
+    its state (RG-LRU h, conv; mLSTM C, n, m, conv; sLSTM c, n, h, m); a
+    cross-attention layer the context's K/V besides."""
     jcfg, jmodel, jparams, tcfg, model = _both(name)
     tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 9))
     jctx, tctx = _ctx(jmodel, 2)
@@ -204,9 +209,9 @@ def test_prefill_seeds_the_jax_cache(name):
     for i in range(tcfg.n_layers):
         jl = _jax_layer_cache(jcfg, jcache, i)
         if "rec" in jl:
-            for got, key in ((cache.h[i], "h"), (cache.conv[i], "conv")):
-                np.testing.assert_allclose(got.numpy(), jl["rec"][key],
-                                           atol=1e-4, rtol=1e-4)
+            for key, want in jl["rec"].items():
+                np.testing.assert_allclose(getattr(cache, key)[i].numpy(),
+                                           want, atol=1e-4, rtol=1e-4)
             continue
         assert cache.k[i].shape[2] == jl["self"]["k"].shape[1] == 16
         np.testing.assert_allclose(cache.k[i].transpose(1, 2).numpy(),
@@ -345,7 +350,7 @@ def store_path(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(ATTENTION_CASES))
 @pytest.mark.parametrize("ctx", [1, 513, 2048])
 def test_decode_rows_bit_identical_to_jax_predictor(store_path, name, ctx):
     dev = cal.device_name("cpu")

@@ -204,10 +204,15 @@ def test_context_is_required_and_made_from_a_seed(name):
 
 
 def test_xlstm_and_moe_still_raise_and_name_their_slice():
-    """xLSTM still raises, naming its slice; MoE is ported
-    (``tests/test_torch_moe.py``) and builds."""
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        tmr.build(tcr.reduced("xlstm-1.3b"), device="cpu")
+    """xLSTM is ported (``tests/test_torch_xlstm.py``) and builds, as MoE
+    does (``tests/test_torch_moe.py``); a block kind outside ``PORTED``
+    still raises, naming itself."""
+    model = tmr.build(tcr.reduced("xlstm-1.3b"), device="cpu")
+    assert model.blocks[7].slstm_blk is not None
+    with pytest.raises(NotImplementedError, match="retnet"):
+        tmr.build(dataclasses.replace(tcr.reduced("whisper-small"),
+                                      block_pattern=("retnet",)),
+                  device="cpu")
     model = tmr.build(tcr.reduced("moonshot-v1-16b-a3b"), device="cpu")
     assert all(blk.moe is not None for blk in model.blocks)
 

@@ -34,6 +34,7 @@ CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
                                                           n_layers=5),
+         "xlstm-1.3b-reduced": lambda m: m.reduced("xlstm-1.3b"),
          "whisper-small-reduced": lambda m: m.reduced("whisper-small"),
          "llama-3.2-vision-reduced": lambda m: m.reduced(
              "llama-3.2-vision-11b")}
@@ -126,9 +127,16 @@ def test_bf16_weights_cast_once_match_per_call_cast():
 
 
 def test_unported_block_kinds_raise():
+    """Every block kind of every config is ported (xlstm-1.3b's mLSTM and
+    sLSTM since the xLSTM slice); a kind outside ``PORTED`` still
+    raises."""
     for name in ("xlstm-1.3b",):
-        with pytest.raises(NotImplementedError):
-            tmr.build(tcr.reduced(name), device="cpu")
+        model = tmr.build(tcr.reduced(name), device="cpu")
+        assert {b.kind for b in model.blocks} == {"mlstm", "slstm"}
+    with pytest.raises(NotImplementedError, match="no port"):
+        tmr.build(dataclasses.replace(tcr.reduced("qwen2-0.5b"),
+                                      block_pattern=("conv_mixer",)),
+                  device="cpu")
 
 
 def test_cuda_without_a_card_raises():

@@ -2,7 +2,8 @@
 repeated forward passes and against the JAX package's engine on the same
 weights (``convert.from_jax_params``) and the same numpy prompts, at
 ``reduced("qwen2-0.5b", n_layers=2)``, ``qwen3-mini``, the hybrid
-``reduced("recurrentgemma-2b", n_layers=5)`` and the encoder–decoder
+``reduced("recurrentgemma-2b", n_layers=5)``, the xLSTM
+``reduced("xlstm-1.3b")`` and the encoder–decoder
 ``reduced("whisper-small")`` in f32.  The engine gives a model that takes
 a context the model's ``make_ctx`` each wave; against the JAX engine both
 ``make_ctx``s are patched to one numpy context.
@@ -36,6 +37,7 @@ CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
          "qwen3-mini": lambda m: m.get_any("qwen3-mini"),
          "recurrentgemma-2b-reduced": lambda m: m.reduced("recurrentgemma-2b",
                                                           n_layers=5),
+         "xlstm-1.3b-reduced": lambda m: m.reduced("xlstm-1.3b"),
          "whisper-small-reduced": lambda m: m.reduced("whisper-small")}
 
 
