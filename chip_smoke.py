@@ -56,7 +56,14 @@ path: the JAX package's paper tables on the card (``repro_torch.benchmarks``):
 NeuSight trained per dtype, Table II, Table IV over the reference's six
 models and qwen2-0.5b and yi-6b at full width, Fig. 3, the partition
 application and the planner CLI, pricing the same measured work with
-PM2Lat, NeuSight and the FLOPs/bytes proxy.  Every
+PM2Lat, NeuSight and the FLOPs/bytes proxy.  Then the training path:
+qwen2-0.5b at full width trained through ``launch/train.py`` (float32
+weights and AdamW moments, float32 and bf16 compute, attention's backward
+through the hand flash backward kernel) with its step-0 checkpoint, the
+step timed and split into forward, backward and optimizer against PM2Lat's
+training step, one step's gradients against the plain attention on the
+card, and a run with injected failures at reduced size held against an
+uninterrupted one (``scripts/torch_train_restart.py``).  Every
 phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
@@ -73,6 +80,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,11 +119,14 @@ from repro_torch.core.nas import NASGrid, precompute_cache  # noqa: E402
 from repro_torch.core.oracle import PROVIDER_PALLAS  # noqa: E402
 from repro_torch.core.predictor import PM2Lat  # noqa: E402
 from repro_torch.core.transfer import transfer_store  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fkb  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
 from repro_torch.launch import plan as plan_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry as model_registry  # noqa: E402
@@ -124,6 +135,9 @@ from repro_torch.models.transformer import (Transformer,  # noqa: E402
 from repro_torch.serving.engine import (DecodeGraph, Request,  # noqa: E402
                                         ServingEngine)
 from repro_torch.serving.latency_service import LatencyService  # noqa: E402
+from repro_torch.training import objective as tobj  # noqa: E402
+from repro_torch.training import optimizer as topt  # noqa: E402
+from repro_torch.training import step as tstep  # noqa: E402
 
 MODEL = "qwen2-0.5b"
 BATCH, SEQ = 8, 512
@@ -361,6 +375,40 @@ PAPER_NS_REPS = 200
 # (B, S) PAPER_TIMED, causal.
 PAPER_TIMED = (8, PAPER_SEQ)
 PAPER_TIMED_ARCHS = ("qwen3-mini", "moonshot-v1-16b-a3b-reduced")
+# The flash backward against its plain version, per tensor, as max |got -
+# want| / max |want|.  float32: both sum in f32, in another order (up to
+# G Sq = 3,584 products a dK element at qwen2-0.5b's geometry): 2e-5.
+# bfloat16: both widen the same bf16 inputs and sum in f32, then round
+# each gradient to bf16 once (unit roundoff 2^-8 of the value); a sum that
+# lands near a rounding boundary can round the other way, one unit more:
+# 2 * 2^-8.  The forward's lse against the plain version's: f32 2e-5
+# (log of a sum in another order); bf16 1e-3 (the kernel's scores come
+# from wgmma's f32 sums and its exponentials from exp2f).
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2 * 2.0 ** -8}
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
+# The train phase: qwen2-0.5b at full width, B 8 x S 512, trained through
+# launch/train.py for TRAIN_STEPS steps a dtype with the checkpoint period
+# past the last step, so that only step 0's state is written (float32
+# weights, m and v: ~5.9 GB), into TRAIN_CKPT, removed after each run.
+# The step is timed over TRAIN_TIMED steps after TRAIN_WARM, split by CUDA
+# events into forward (loss), backward (autograd) and optimizer.  One
+# step's gradients on the hand path against the same model with attention
+# through the plain versions on the card, as each parameter's max |d| /
+# max |g|: float32 1e-3 (the two attentions differ by f32 sums in another
+# order, ~1e-6 of their outputs, carried through 24 layers and the loss);
+# bf16 1e-1 (the hand forward rounds P to bf16 before P V and the plain
+# version does not, ~2^-8 of each attention output, carried the same way).
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_STEPS = 6
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
+# The restart run's losses against the uninterrupted run's where PyTorch
+# names an operation with no deterministic implementation (else they must
+# be equal): a nondeterministic sum moves a gradient's last bits (~1e-7 of
+# it), which ten steps at lr 1e-3 carry to well under 1e-5 of the loss.
+TRAIN_RESTART_RTOL = 1e-5
 
 
 def emit(phase: str, **fields):
@@ -399,16 +447,22 @@ def phase_device():
 
 WGMMA_KERNELS = ("mm_wgmma_kernel", "fa_wgmma_kernel")   # the bf16 instances
 FFMA_KERNELS = ("mm_kernel", "fa_fwd_kernel")             # the float32 instances
+# the flash backward's kernels: FFMA in both types
+BWD_KERNELS = ("fa_bwd_d_kernel", "fa_bwd_dkdv_kernel", "fa_bwd_dq_kernel")
 
 
 def kernel_label(mangled: str) -> str:
-    """``fa_wgmma_kernel<128,128,64,bf16>`` from a mangled template name."""
+    """``fa_wgmma_kernel<128,128,64,bf16>`` from a mangled template name
+    (the backward's type is its template argument)."""
     base = re.search(r"(mm_wgmma_kernel|fa_wgmma_kernel|mm_kernel|"
-                     r"fa_fwd_kernel)", mangled)
+                     r"fa_fwd_kernel|" + "|".join(BWD_KERNELS) + ")", mangled)
     ints = re.findall(r"Li(\d+)E", mangled)
     if not base:
         return mangled[:60]
-    kind = "bf16" if base.group(1) in WGMMA_KERNELS else "f32"
+    if base.group(1) in BWD_KERNELS:
+        kind = "bf16" if "__nv_bfloat16" in mangled else "f32"
+    else:
+        kind = "bf16" if base.group(1) in WGMMA_KERNELS else "f32"
     return f"{base.group(1)}<{','.join(ints)},{kind}>"
 
 
@@ -448,15 +502,18 @@ def phase_build():
         build.load(name)
     # every bf16 instance runs on the tensor cores; every float32 instance
     # runs FFMA and no tensor-core instruction (true f32, no TF32)
-    hgmma, ffma = {}, {}
+    hgmma, ffma, bwd = {}, {}, {}
+    count = lambda code: {op: len(re.findall(rf"\b{op}\b", code))
+                          for op in ("FFMA", "HMMA", "HGMMA")}
     for name in build.SOURCES:
         for mangled, code in build.sass(name).items():
             label = kernel_label(mangled)
             if label.startswith(WGMMA_KERNELS):
                 hgmma[label] = code.count("HGMMA")
             elif label.startswith(FFMA_KERNELS):
-                ffma[label] = {op: len(re.findall(rf"\b{op}\b", code))
-                               for op in ("FFMA", "HMMA", "HGMMA")}
+                ffma[label] = count(code)
+            elif label.startswith(BWD_KERNELS):
+                bwd[label] = count(code)
     want = len(mk.CONFIGS) + len(fk.INSTANCES)
     if len(hgmma) != want or not all(hgmma.values()):
         raise AssertionError(f"HGMMA missing from the SASS of a bf16 "
@@ -465,6 +522,11 @@ def phase_build():
                                     not c["HGMMA"] for c in ffma.values()):
         raise AssertionError(f"a float32 instance lacks FFMA or uses the "
                              f"tensor cores ({want} expected): {ffma}")
+    want = len(BWD_KERNELS) * len(fkb.HEAD_DIMS) * len(fkb.DTYPES)
+    if len(bwd) != want or not all(c["FFMA"] and not c["HMMA"] and
+                                   not c["HGMMA"] for c in bwd.values()):
+        raise AssertionError(f"a flash backward instance lacks FFMA or uses "
+                             f"the tensor cores ({want} expected): {bwd}")
     for fns in summary.values():
         for label, f in fns.items():
             if f.get("spill_stores", 0) or f.get("spill_loads", 0):
@@ -487,6 +549,12 @@ def phase_build():
                 lib = fk.library_smem(c, hd, dt)
                 dynamic_smem[f"{c.name}/hd{hd}/{dt}"] = lib
                 bad += [(c.name, hd, str(dt), py, lib)] if py != lib else []
+    for hd in fk.HEAD_DIMS:
+        for kern in fkb.KERNELS:
+            py = fkb.smem_bytes(hd, kern) if hd in fkb.HEAD_DIMS else -1
+            lib = fkb.library_smem(hd, kern)
+            dynamic_smem[f"fa_bwd_{kern}/hd{hd}"] = lib
+            bad += [("bwd", kern, hd, py, lib)] if py != lib else []
     if bad:
         raise AssertionError(f"dynamic shared memory differs from Python's "
                              f"smem_bytes: {bad}")
@@ -496,7 +564,7 @@ def phase_build():
                        for line in log.splitlines()
                        if "warning" in line.lower() or "Performance Loss" in line})
     out = dict(seconds=build_s, ptxas=summary, hgmma_count=hgmma,
-               float32_sass=ffma, float32_occupancy=occupancy,
+               float32_sass=ffma, bwd_sass=bwd, float32_occupancy=occupancy,
                dynamic_smem_bytes=dynamic_smem, compiler_warnings=warnings)
     emit("build", **out)
     return out
@@ -785,6 +853,74 @@ def check_flash(dtypes):
     return worst, rows
 
 
+def bwd_path_cases():
+    """The flash backward's cases: (B, Sq, Skv, H, Hkv, hd, causal,
+    window): the train path's geometry (qwen2-0.5b at B 8 x S 512, GQA 7),
+    non-causal over a ragged Skv (Sq != Skv), a window, GQA 1 at hd 128,
+    bottom-right causal over a ragged Skv, a window at hd 128 with ragged
+    lengths, and the reduced configs' narrow heads (hd 16 and 32: phase
+    ``train``'s restart run trains one)."""
+    return [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, True, None),
+            (2, 200, 333, 14, 2, 64, False, None),
+            (2, 256, 256, 8, 1, 64, True, 64),
+            (2, 300, 300, 4, 4, 128, True, None),
+            (3, 100, 229, 14, 2, 64, True, None),
+            (1, 190, 190, 2, 1, 128, True, 50),
+            (2, 128, 128, 4, 2, 16, True, None),
+            (1, 96, 160, 8, 4, 32, False, None)]
+
+
+def bwd_inputs(case, dt, gen):
+    """q, k, v, do of a backward case in ``dt`` and the hand forward's o
+    and lse over them."""
+    B, Sq, Skv, H, Hkv, hd, causal, window = case
+    rand = lambda *shape: torch.randn(*shape, generator=gen,
+                                      device="cuda").to(dt)
+    q, k, v = rand(B, Sq, H, hd), rand(B, Skv, Hkv, hd), rand(B, Skv, Hkv, hd)
+    do = rand(B, Sq, H, hd)
+    kw = dict(causal=causal, window=window, q_offset=Skv - Sq)
+    cfg = fk.select_config(Sq, Skv, hd, dt)
+    o, lse = fk.flash_attention_kernel(q, k, v, cfg, return_lse=True, **kw)
+    return (q, k, v, o, lse, do), cfg, kw
+
+
+def rel_max(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def check_flash_bwd(dtypes):
+    """The hand backward against ``flash_attention_bwd_plain`` on the same
+    (q, k, v, o, lse, do) at ``bwd_path_cases``, per gradient at
+    ``BWD_TOL``; and the forward's lse against ``flash_attention_plain``'s
+    at ``LSE_TOL``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, worst = [], 0.0
+    for dname in dtypes:
+        dt = getattr(torch, dname)
+        for case in bwd_path_cases():
+            args, cfg, kw = bwd_inputs(case, dt, gen)
+            q, k, v, o, lse, do = args
+            got = fkb.flash_attention_bwd_kernel(*args, **kw)
+            torch.cuda.synchronize()
+            want = fkb.flash_attention_bwd_plain(*args, **kw)
+            errs = {name: rel_max(g, w) for name, g, w in
+                    zip(("dq", "dk", "dv"), got, want)}
+            _, lse_plain = fk.flash_attention_plain(q, k, v, cfg,
+                                                    return_lse=True, **kw)
+            lse_err = float((lse - lse_plain).abs().max())
+            ok = all(e <= BWD_TOL[dname] for e in errs.values()) \
+                and lse_err <= LSE_TOL[dname]
+            rows.append({"dtype": dname, "case": list(case), **errs,
+                         "lse_max_abs_err": lse_err, "ok": ok})
+            worst = max(worst, *errs.values())
+            if not ok:
+                raise AssertionError(f"flash backward {dname} {case}: "
+                                     f"{errs}, lse {lse_err}")
+    return worst, rows
+
+
 def phase_calibrate():
     path = cal.default_store_path("cuda")      # artifacts/torch/
     store = cal.calibrate_device(path, device="cuda", verbose=False)
@@ -1042,6 +1178,7 @@ def hand_launches():
     fa = fk.flash_attention_kernel
     return {"matmul": mk.matmul_kernel.launches,
             "flash_attention": fa.launches,
+            "flash_attention_bwd": fkb.flash_attention_bwd_kernel.launches,
             **{f"flash_attention@hd{hd}": n
                for hd, n in sorted(fa.launches_by_hd.items())},
             **{f"flash_attention@{'causal' if c else 'noncausal'}": n
@@ -1051,6 +1188,7 @@ def hand_launches():
 def reset_launches():
     mk.matmul_kernel.launches = 0
     fk.flash_attention_kernel.launches = 0
+    fkb.flash_attention_bwd_kernel.launches = 0
     fk.flash_attention_kernel.launches_by_hd.clear()
     fk.flash_attention_kernel.launches_by_causal.clear()
 
@@ -3850,6 +3988,254 @@ def paper_table4_summary(rows):
     return out
 
 
+def phase_train(store):
+    """qwen2-0.5b at full width trained on the card, float32 then bf16
+    compute (float32 weights and moments in both): (a) ``launch.train.run``
+    for TRAIN_STEPS steps with the checkpoint's bytes and write seconds,
+    (e) its losses finite and falling; (b) the step timed and split
+    (``train_step_times``); (c) against PM2Lat's training step
+    (``train_prediction``); (d) one step's gradients against the plain
+    attention (``train_grad_check``); then (f) the restart run
+    (``train_restart``).  Fails on any check."""
+    t0 = time.perf_counter()
+    cfg0 = cfg_registry.get(MODEL)
+    out = {"arch": MODEL, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "n_params": cfg0.param_count()}
+    for dname in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        rec = {"launcher": train_launch(dname)}
+        rec["step"] = train_step_times(cfg)
+        rec["prediction"] = train_prediction(store, cfg, rec["step"])
+        rec["grads"] = train_grad_check(cfg)
+        emit("train", dtype=dname, **rec)
+        out[dname] = rec
+    out["restart"] = train_restart()
+    emit("train_restart", **out["restart"])
+    out["seconds"] = time.perf_counter() - t0
+    emit("train", seconds=out["seconds"])
+    return out
+
+
+def train_launch(dname):
+    """``launch.train.run`` at full width: the losses (finite, the last
+    below the first), the step-0 checkpoint (its bytes against the state's
+    and its write seconds), then the directory removed."""
+    ckpt = TRAIN_CKPT / dname
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = train_launcher.parse_args([
+        "--arch", MODEL, "--steps", str(TRAIN_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--compute-dtype", dname,
+        "--ckpt-dir", str(ckpt), "--ckpt-every", str(TRAIN_STEPS + 1)])
+    try:
+        res = train_launcher.run(args)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = cfg_registry.get(MODEL).param_count()
+    state_bytes = 3 * 4 * n + 4          # params, m, v in f32; the step
+    ck = res["checkpoints"]
+    losses = res["losses"]
+    rec = {"losses": losses, "wall_s": res["wall_s"],
+           "restarts": res["restarts"],
+           "straggler_events": res["straggler_events"],
+           "checkpoints": ck, "state_bytes": state_bytes,
+           "checkpoint_gb_per_s": [c["bytes"] / c["seconds"] / 1e9
+                                   for c in ck]}
+    checks = {"finite": bool(np.isfinite(losses).all()),
+              "falls": losses[-1] < losses[0],
+              "steps": res["steps"] == list(range(TRAIN_STEPS)),
+              "step0_only": [c["step"] for c in ck] == [0],
+              "checkpoint_holds_the_state": all(
+                  state_bytes <= c["bytes"] <= 1.01 * state_bytes
+                  for c in ck)}
+    rec["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"train launcher {dname}: {checks}, losses "
+                             f"{losses}, checkpoints {ck}")
+    return rec
+
+
+def train_model(cfg):
+    """The launcher's model, parameters, optimizer, step and data: seed 0,
+    float32 weights, ``cfg``'s compute dtype."""
+    model = model_registry.build(cfg, device="cuda", seed=0)
+    params = tstep.trainable_params(model)
+    adamw = topt.AdamWConfig(lr=1e-3, warmup_steps=5,
+                             total_steps=TRAIN_WARM + TRAIN_TIMED)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=0), device="cuda")
+    return model, params, adamw, data
+
+
+def train_step_times(cfg):
+    """(b): the launcher's step (``build_train_step``, remat on as
+    ``launch.train`` runs it) timed by CUDA events, median of TRAIN_TIMED
+    after TRAIN_WARM, with its hand-kernel launches; the same steps split
+    into forward, backward and optimizer by events that the step's
+    ``mark`` hook records at its part boundaries, each part's median, and
+    the backward / forward ratio."""
+    model, params, adamw, data = train_model(cfg)
+    events = {}
+
+    def mark(part):
+        events[part] = torch.cuda.Event(enable_timing=True)
+        events[part].record()
+
+    step = tstep.build_train_step(model, adamw, remat=True, mark=mark)
+    state = topt.init_opt_state(params)
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    whole, launches = [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        before = hand_launches()
+        mark("start")
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        if i >= TRAIN_WARM:
+            whole.append(events["start"].elapsed_time(events["optimizer"]))
+            prev = "start"
+            for key in parts:
+                parts[key].append(events[prev].elapsed_time(events[key]))
+                prev = key
+        launches = {k: v - before.get(k, 0) for k, v in hand_launches().items()
+                    if v - before.get(k, 0)}
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    rec = {"step_ms": float(np.median(whole)), "step_ms_all": whole,
+           **{f"{k}_ms": v for k, v in med.items()},
+           "parts_ms_all": parts,
+           "bwd_fwd_ratio": med["backward"] / med["forward"],
+           "launches_per_step": launches, "remat": True,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "final_loss": float(m["loss"])}
+    del model, params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches.get("flash_attention") != 2 * cfg.n_layers \
+            or launches.get("flash_attention_bwd") != cfg.n_layers:
+        raise AssertionError(f"one training step launched {launches}; "
+                             f"expected {2 * cfg.n_layers} flash forwards "
+                             f"(remat runs each again) and {cfg.n_layers} "
+                             f"backwards")
+    return rec
+
+
+def train_prediction(store, cfg, measured):
+    """(c): ``PM2Lat.schedule_step`` at the train shape with the default
+    ``TrainingStepSpec`` (backward 2.0 x forward, AdamW as one memory op),
+    its forward / backward / optimizer split (row names: ``bwd.*``,
+    ``opt.*``, the rest forward) against the measured parts."""
+    pm = PM2Lat(store, store.meta["device"])
+    sch = pm.schedule_step(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           train=sched.TrainingStepSpec(),
+                           dtype=cfg.compute_dtype)
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for r in sch.rows:
+        key = ("backward" if r.name.startswith("bwd.") else
+               "optimizer" if r.name.startswith("opt.") else "forward")
+        split[key] += r.seconds * 1e3
+    pred = sch.makespan * 1e3
+    rec = {"predicted_ms": pred, "measured_ms": measured["step_ms"],
+           "err_pct": 100 * abs(pred - measured["step_ms"])
+           / measured["step_ms"],
+           "predicted_split_ms": split,
+           "split_err_pct": {k: 100 * abs(v - measured[f"{k}_ms"])
+                             / measured[f"{k}_ms"] for k, v in split.items()},
+           "predicted_bwd_fwd_ratio": split["backward"] / split["forward"],
+           "measured_bwd_fwd_ratio": measured["bwd_fwd_ratio"]}
+    if not (pred > 0 and all(v > 0 for v in split.values())):
+        raise AssertionError(f"training-step prediction {rec}")
+    return rec
+
+
+class PlainAttentionOnCard:
+    """Inside the block, the attention's forward and backward wrappers are
+    their plain versions on the card's tensors (no launch, no count): the
+    reference a hand-path gradient is held against."""
+
+    def __enter__(self):
+        self.saved = (fk.flash_attention_kernel, fkb.flash_attention_bwd_kernel)
+        fk.flash_attention_kernel = \
+            lambda q, k, v, cfg, **kw: fk.flash_attention_plain(q, k, v, cfg,
+                                                                **kw)
+        fkb.flash_attention_bwd_kernel = fkb.flash_attention_bwd_plain
+        return self
+
+    def __exit__(self, *exc):
+        fk.flash_attention_kernel, fkb.flash_attention_bwd_kernel = self.saved
+
+
+def train_grad_check(cfg):
+    """(d): one step's loss and gradients (``loss_fn`` at batch 0, remat
+    on) through the hand kernels and through the plain attention on the
+    card, each parameter's max |d| / max |g| held to TRAIN_GRAD_TOL."""
+    model, params, _, data = train_model(cfg)
+    batch = data.batch_at(0)
+    out = []
+    for plain in (False, True):
+        before = hand_launches()
+        if plain:
+            with PlainAttentionOnCard():
+                loss, _ = tobj.loss_fn(model, batch, remat=True)
+                grads = torch.autograd.grad(loss, list(params.values()))
+        else:
+            loss, _ = tobj.loss_fn(model, batch, remat=True)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        launched = hand_launches()["flash_attention_bwd"] \
+            - before["flash_attention_bwd"]
+        out.append((float(loss.detach()), grads, launched))
+    (l_hand, g_hand, n_hand), (l_plain, g_plain, n_plain) = out
+    errs = {name: rel_max(a, b) for name, a, b in zip(params, g_hand, g_plain)}
+    worst = max(errs, key=errs.get)
+    bad = [n for n, e in errs.items()
+           if not e <= TRAIN_GRAD_TOL[cfg.compute_dtype]]
+    rec = {"loss_hand": l_hand, "loss_plain": l_plain,
+           "loss_rel_diff": abs(l_hand - l_plain) / abs(l_plain),
+           "max_rel_err": errs[worst], "worst_param": worst,
+           "rel_err_by_param": dict(sorted(errs.items(),
+                                           key=lambda kv: -kv[1])[:12]),
+           "tol": TRAIN_GRAD_TOL[cfg.compute_dtype], "over_tol": bad,
+           "bwd_launches": [n_hand, n_plain]}
+    del model, params, g_hand, g_plain, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad or n_plain or n_hand != cfg.n_layers:
+        raise AssertionError(f"train gradients {cfg.compute_dtype}: {rec}")
+    return rec
+
+
+def train_restart():
+    """(f): ``scripts/torch_train_restart.py`` in a process of its own
+    (deterministic algorithms, ``CUBLAS_WORKSPACE_CONFIG`` set before
+    cuBLAS starts): the losses of a run with two injected failures equal
+    the uninterrupted run's bit for bit, or, where PyTorch names an
+    operation without a deterministic implementation, within
+    TRAIN_RESTART_RTOL of them (the ops are reported); a restored state
+    equals the saved one bit for bit."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, str(TRAIN_RESTART), str(ROOT / "build" /
+                                                 "train_restart")],
+        capture_output=True, text=True, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"train restart run failed ({proc.returncode}):"
+                             f" {proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    exact = not rec["nondeterministic_ops"]
+    ok = rec["restarts"] == 2 and rec["restored_bitwise"] and (
+        rec["bitwise_equal"] if exact else rec["max_abs_diff"]
+        <= TRAIN_RESTART_RTOL * max(map(abs, rec["losses"])))
+    rec["held_bit_for_bit"] = exact
+    if not ok:
+        raise AssertionError(f"train restart: {rec}")
+    return rec
+
+
 def bound(nbytes, flops, dname="bfloat16"):
     """(the least ms the card could take to move ``nbytes`` and do
     ``flops`` in ``dname``, which of the two bounds it)."""
@@ -4116,6 +4502,7 @@ def kernel_lines(by_path, mm_pick):
                 for hd in (16, 32)} for p, n in by_path.items()},
             "cases": [flash_case(arch, *PAPER_TIMED, PAPER_TIMED[1], dt, True)
                       for arch in PAPER_TIMED_ARCHS for dt in (bf, f32)]}})
+    lines.append(bwd_line(gen, by_path))
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
@@ -4124,8 +4511,9 @@ def kernel_lines(by_path, mm_pick):
             raise AssertionError(
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
+    flash = next(x for x in lines if x["name"] == "flash_attention")
     for key in ("hd256", "encdec", "hd128", "paper"):
-        cases = lines[-1][key]["cases"]
+        cases = flash[key]["cases"]
         if not all(c["ok"] for c in cases):
             raise AssertionError(f"flash {key} cases: max errs "
                                  f"{[c['max_abs_err'] for c in cases]}")
@@ -4134,6 +4522,59 @@ def kernel_lines(by_path, mm_pick):
         raise AssertionError(f"device_ms readings that cannot be right: "
                              f"{bad}")
     return lines
+
+
+def bwd_line(gen, by_path):
+    """The flash backward at the train path's attention (qwen2-0.5b, B 8 x
+    S 512, 14 heads over 2 at hd 64, causal), bf16 and, under
+    ``float32``, float32: its time against its plain version's and SDPA's
+    backward (one ``autograd.grad`` of ``scaled_dot_product_attention``
+    over KV heads repeated to the query heads: a yardstick only, never on
+    the path; its graph capture is not attempted, so it has no device
+    time).  Bound: the five products over the pairs the causal mask keeps
+    (10 hd flops a pair and head) and q, k, v, o, dO, dQ, dK, dV and lse
+    moved once."""
+    case = bwd_path_cases()[0]
+    B, S, _, H, Hkv, hd, causal, _ = case
+    pairs = S * (S + 1) / 2
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[1]
+        args, _, kw = bwd_inputs(case, dt, gen)
+        run = lambda *a: fkb.flash_attention_bwd_kernel(*a, **kw)
+        plain = lambda *a: fkb.flash_attention_bwd_plain(*a, **kw)
+        pairs_gw = list(zip(run(*args), plain(*args)))
+        errs = [rel_max(g, w) for g, w in pairs_gw]
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in pairs_gw)
+        del pairs_gw
+        esize = args[0].element_size()
+        nbytes = esize * 4 * (B * S * H * hd + B * S * Hkv * hd) \
+            + 4 * B * H * S
+        bms, by = bound(nbytes, 10.0 * B * H * hd * pairs, dname)
+        q, k, v = (x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2)
+                   .contiguous().requires_grad_() for x in args[:3])
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                             is_causal=True)
+        do = args[5].transpose(1, 2).contiguous()
+        sdpa_bwd = lambda: torch.autograd.grad(o, (q, k, v), do,
+                                               retain_graph=True)
+        out[dname] = {"max_rel_err": max(errs), "ok": all(
+                          e <= BWD_TOL[dname] for e in errs),
+                      "max_abs_err": abs_err,
+                      **timed(run, *args),
+                      "plain_ms": profiler.measure(plain, *args) * 1e3,
+                      "bound_ms": bms, "bound_by": by,
+                      "library_ms": profiler.measure(sdpa_bwd) * 1e3}
+        del q, k, v, o, do
+    line = {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/models/attention.py:133",
+            "launches": by_path["train"]["flash_attention_bwd"],
+            "shape": [B, S, H, Hkv, hd], "dtype": "bfloat16",
+            **out["bfloat16"], "float32": out["float32"],
+            "tolerance": "max |d| / max |plain| per gradient, BWD_TOL"}
+    return line
 
 
 def encdec_timed():
@@ -4226,15 +4667,20 @@ def main() -> int:
 
     mm_err, mm_rows = check_matmul(("float32", "bfloat16"))
     fa_err, fa_rows = check_flash(("float32", "bfloat16"))
-    record["kernel_checks"] = {"matmul": mm_rows, "flash_attention": fa_rows}
+    bwd_err, bwd_rows = check_flash_bwd(("float32", "bfloat16"))
+    record["kernel_checks"] = {"matmul": mm_rows, "flash_attention": fa_rows,
+                               "flash_attention_bwd": bwd_rows}
     for kernel, rows in record["kernel_checks"].items():
         for row in rows:
             emit("check", kernel=kernel, **row)
     emit("kernels_vs_plain", matmul_checks=len(mm_rows),
          matmul_max_abs_err=mm_err, flash_checks=len(fa_rows),
-         flash_max_abs_err=fa_err, all_ok=True,
+         flash_max_abs_err=fa_err, flash_bwd_checks=len(bwd_rows),
+         flash_bwd_max_rel_err=bwd_err, all_ok=True,
          tolerances={"matmul (atol/sqrt(K), rtol)": MM_TOL,
-                     "flash_attention (atol, rtol)": FA_TOL})
+                     "flash_attention (atol, rtol)": FA_TOL,
+                     "flash_attention_bwd (max |d| / max |plain|)": BWD_TOL,
+                     "lse (atol)": LSE_TOL})
 
     # --- the main path: counts from 0, read right after ---
     reset_launches()
@@ -4243,8 +4689,8 @@ def main() -> int:
     model = phase_model(store)
     launches = hand_launches()
     emit("main_path_launches", **launches)
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("matmul", "flash_attention"):
+        if launches[name] == 0:
             raise AssertionError(f"the main path never launched {name}")
 
     # --- the decode and serving paths, each with counts from 0 ---
@@ -4277,7 +4723,13 @@ def main() -> int:
     reset_launches()
     paper = phase_paper(store, grid)
     by_path["paper"] = hand_launches()
+    reset_launches()
+    train = phase_train(store)
+    by_path["train"] = hand_launches()
     emit("path_launches", **by_path)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if by_path["train"][name] == 0:
+            raise AssertionError(f"the train path never launched {name}")
     if any(by_path["xlstm"].values()):
         raise AssertionError(f"the xlstm path launched a hand kernel: "
                              f"{by_path['xlstm']}")
@@ -4302,6 +4754,7 @@ def main() -> int:
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
                   encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
+                  train=train,
                   kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)

@@ -133,8 +133,9 @@ struct FaFfma {
 template <int BQ, int BK, int HD>
 __global__ void __launch_bounds__(FaFfma<BQ, BK, HD>::THREADS, 1)
 fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int H, int Hkv,
-              int Sq, int Skv, int causal, int window, int q_offset, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int H, int Hkv, int Sq, int Skv, int causal,
+              int window, int q_offset, float scale) {
   using S = FaFfma<BQ, BK, HD>;
   using namespace simt;
   constexpr int TM = S::TM, TN = S::TN, TX = S::TX, NT = S::THREADS, NG = S::NG;
@@ -296,7 +297,8 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   cp_async_wait<0>();                  // nothing left in flight at exit
 
-  // l over the 16 lanes of a row, clamp, divide, store.
+  // l over the 16 lanes of a row, clamp, divide, store; lse = m + log l
+  // (scaled scores, natural units) where the caller asks for it.
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     float lr = l[r];
@@ -305,6 +307,7 @@ fa_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qr = q0 + row(r);
     if (qr >= Sq) continue;
     const float lc = fmaxf(lr, 1e-30f);
+    if (lse != nullptr && tx == 0) lse[(size_t)bh * Sq + qr] = m[r] + logf(lc);
     float out[OC];
 #pragma unroll
     for (int c = 0; c < OC; ++c) out[c] = acc[r][c] / lc;
@@ -323,17 +326,18 @@ cudaError_t prepare_ffma() {
 }
 
 template <int BQ, int BK, int HD>
-cudaError_t launch_ffma(const void* q, const void* k, const void* v, void* o, int B,
-                        int H, int Hkv, int Sq, int Skv, int causal, int window,
-                        int q_offset, float scale, cudaStream_t stream) {
+cudaError_t launch_ffma(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int H, int Hkv, int Sq, int Skv,
+                        int causal, int window, int q_offset, float scale,
+                        cudaStream_t stream) {
   using S = FaFfma<BQ, BK, HD>;
   const cudaError_t attr = prepare_ffma<BQ, BK, HD>();
   if (attr != cudaSuccess) return attr;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   fa_fwd_kernel<BQ, BK, HD><<<grid, S::THREADS, S::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
-      causal, window, q_offset, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, Sq,
+      Skv, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
@@ -376,8 +380,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int H, int Hkv, int Sq, int Skv,
-                int causal, int window, int q_offset, float scale,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+                int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
+                float scale,
                 long long q_sb, long long q_ss, long long q_sh, long long k_sb,
                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                 long long v_sh, int tma) {
@@ -576,12 +581,15 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   }
 
-  // l over the quad, clamp, divide, store bf16.
+  // l over the quad, clamp, divide, store bf16.  m is in natural units (the
+  // exponentials above take exp2f of (s - m) log2 e), so lse = m + log l
+  // is the reference's, where the caller asks for it.
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
   const int64_t o_row = (int64_t)H * HD;
   __nv_bfloat16* ob = o + (int64_t)b * Sq * o_row + (int64_t)h * HD;
 #pragma unroll
@@ -589,6 +597,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int qr = q0 + row0 + 8 * hh;
     if (qr >= Sq) continue;
     const float inv = hh ? inv1 : inv0;
+    if (lse != nullptr && l % 4 == 0)
+      lse[(int64_t)bh * Sq + qr] = (hh ? m1 : m0) + logf(hh ? lc1 : lc0);
     __nv_bfloat16* orow = ob + (int64_t)qr * o_row;
 #pragma unroll
     for (int jj = 0; jj < HD / 8; ++jj) {
@@ -601,7 +611,8 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int BQ, int BK, int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int B, int H, int Hkv, int Sq, int Skv, int causal,
+                         float* lse, int B, int H, int Hkv, int Sq, int Skv,
+                         int causal,
                          int window, int q_offset, float scale,
                          const long long* qs, const long long* ks,
                          const long long* vs, int path, cudaStream_t stream) {
@@ -629,15 +640,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, S::THREADS, S::SMEM, stream>>>(
       map_q, map_k, map_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Skv, causal, window, q_offset,
-      scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
+      static_cast<__nv_bfloat16*>(o), lse, H, Hkv, Sq, Skv, causal, window,
+      q_offset, scale, qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2],
       path == 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd).  dtype: 0 = float32
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); lse: null, or (B, H, Sq)
+// float32 for the log-sum-exp of each row's scaled scores (the backward's
+// input; every inference launch passes null).  dtype: 0 = float32
 // (contiguous tensors at 16-byte aligned addresses; strides and path
 // unused), 1 = bfloat16.  Strides
 // of q, k, v, each (batch, sequence, head) in elements, the head dim
@@ -647,7 +660,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // instantiated.
 extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int path,
                                       const void* q, const void* k, const void* v,
-                                      void* o, int B, int H, int Hkv, int Sq,
+                                      void* o, void* lse, int B, int H, int Hkv, int Sq,
                                       int Skv, int causal, int window,
                                       int q_offset, float scale, long long q_sb,
                                       long long q_ss, long long q_sh,
@@ -656,14 +669,15 @@ extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int pat
                                       long long v_ss, long long v_sh,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_ss, q_sh}, ks[3] = {k_sb, k_ss, k_sh},
                   vs[3] = {v_sb, v_ss, v_sh};
   if (dtype == 0) {
 #define PM2LAT_FA_F32(BQ, BK, HD)                                             \
     if (bq == BQ && bk == BK && hd == HD)                                     \
-      return launch_ffma<BQ, BK, HD>(q, k, v, o, B, H, Hkv, Sq, Skv, causal,  \
-                                     window, q_offset, scale, s);
+      return launch_ffma<BQ, BK, HD>(q, k, v, o, lse_f, B, H, Hkv, Sq, Skv,   \
+                                     causal, window, q_offset, scale, s);
     PM2LAT_FA_F32(64, 64, 16)
     PM2LAT_FA_F32(64, 64, 32)
     PM2LAT_FA_F32(64, 64, 64)
@@ -677,9 +691,9 @@ extern "C" int pm2lat_flash_attention(int bq, int bk, int hd, int dtype, int pat
   } else if (dtype == 1) {
 #define PM2LAT_FA_BF16(BQ, BK, HD)                                            \
     if (bq == BQ && bk == BK && hd == HD)                                     \
-      return launch_wgmma<BQ, BK, HD>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, \
-                                      window, q_offset, scale, qs, ks, vs,    \
-                                      path, s);
+      return launch_wgmma<BQ, BK, HD>(q, k, v, o, lse_f, B, H, Hkv, Sq, Skv,  \
+                                      causal, window, q_offset, scale, qs,    \
+                                      ks, vs, path, s);
     PM2LAT_FA_BF16(64, 64, 16)
     PM2LAT_FA_BF16(64, 64, 32)
     PM2LAT_FA_BF16(64, 64, 64)

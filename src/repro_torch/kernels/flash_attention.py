@@ -145,10 +145,14 @@ def select_config(Sq: int, Skv: int, hd: int,
 
 
 def flash_attention_plain(q, k, v, config: FlashConfig, *, causal=True,
-                          window: Optional[int] = None, q_offset: int = 0):
+                          window: Optional[int] = None, q_offset: int = 0,
+                          return_lse: bool = False):
     """The kernel's function in plain PyTorch, KV tile by KV tile with the
     kernel's masking and online-softmax arithmetic.  q (B,Sq,H,hd), k/v
-    (B,Skv,Hkv,hd) -> (B,Sq,H,hd); query head h reads KV head h // (H/Hkv)."""
+    (B,Skv,Hkv,hd) -> (B,Sq,H,hd); query head h reads KV head h // (H/Hkv).
+    With ``return_lse``, (o, lse): lse (B, H, Sq) f32 = m + log(max(l,
+    1e-30)) over the scaled scores, as the JAX package's ``_fa_fwd_scan``
+    returns it."""
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -177,15 +181,16 @@ def flash_attention_plain(q, k, v, config: FlashConfig, *, causal=True,
         l = l * corr + p.sum(-1, keepdim=True)
         m = m_new
         acc = acc * corr + p @ vf[:, :, k0:k0 + bk]
-    o = acc / torch.clamp(l, min=1e-30)
-    return o.transpose(1, 2).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    o = (acc / l).transpose(1, 2).to(q.dtype)
+    return (o, (m + torch.log(l))[..., 0]) if return_lse else o
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     lib = build.load("flash_attention")
     fn = lib.pm2lat_flash_attention
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + \
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_longlong] * 9 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -214,12 +219,16 @@ def library_blocks_per_sm(config: FlashConfig, hd: int) -> int:
 
 
 def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
-                           window: Optional[int] = None, q_offset: int = 0):
+                           window: Optional[int] = None, q_offset: int = 0,
+                           return_lse: bool = False):
     """q (BH,Sq,hd), k/v (BH,Skv,hd) -> (BH,Sq,hd), as the TPU kernel; or
     q (B,Sq,H,hd), k/v (B,Skv,Hkv,hd) -> (B,Sq,H,hd) with H a multiple of
     Hkv (GQA read in place).  Any Sq, Skv: the kernel masks ragged tails.
-    CUDA tensors launch the hand-written kernel (and count the launch); CPU
-    tensors take the plain version."""
+    With ``return_lse`` (the backward's residual; 4-d tensors only), (o,
+    lse) with lse (B, H, Sq) f32.  CUDA tensors launch the hand-written
+    kernel (and count the launch); CPU tensors take the plain version.  It
+    has no autograd of its own: ``kernels.ops.flash_attention`` is the
+    differentiable entry."""
     three_d = q.dim() == 3
     if three_d:
         q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
@@ -240,29 +249,39 @@ def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention_kernel: window={window} must be "
                          f"positive or None")
+    if return_lse and three_d:
+        raise ValueError("flash_attention_kernel: return_lse takes 4-d "
+                         "tensors")
     if q.is_cpu and k.is_cpu and v.is_cpu:
-        o = flash_attention_plain(q, k, v, config, causal=causal,
-                                  window=window, q_offset=q_offset)
-    else:
-        o = _launch(q, k, v, config, causal, window, q_offset)
-    return o[:, :, 0] if three_d else o
+        out = flash_attention_plain(q, k, v, config, causal=causal,
+                                    window=window, q_offset=q_offset,
+                                    return_lse=return_lse)
+        return out[:, :, 0] if three_d else out
+    o, lse = _launch(q, k, v, config, causal, window, q_offset, return_lse)
+    if three_d:
+        return o[:, :, 0]
+    return (o, lse) if return_lse else o
 
 
-def _launch(q, k, v, config, causal, window, q_offset):
+def _launch(q, k, v, config, causal, window, q_offset, return_lse):
+    """(o, lse); lse is None (a null pointer to the kernel) unless
+    ``return_lse``."""
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"flash_attention_kernel: tensors on {q.device}, "
                          f"{k.device}, {v.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention_kernel has no backward kernel yet "
-                           "(it comes with the training slice); call it under "
-                           "torch.no_grad()")
+        raise RuntimeError("flash_attention_kernel has no autograd; take "
+                           "gradients through kernels.ops.flash_attention")
     q, k, v, path = _operands(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib, fn = _entry()
     err = fn(config.bq, config.bk, hd, DTYPES[q.dtype], LOAD_PATHS[path],
              q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             0 if lse is None else lse.data_ptr(),
              B, H, Hkv, Sq, Skv, int(bool(causal)), int(window or 0),
              int(q_offset), 1.0 / float(hd) ** 0.5,
              *(q.stride()[:3] + k.stride()[:3] + v.stride()[:3]),
@@ -273,7 +292,7 @@ def _launch(q, k, v, config, causal, window, q_offset):
     by_hd[hd] = by_hd.get(hd, 0) + 1
     by_mask = flash_attention_kernel.launches_by_causal
     by_mask[bool(causal)] = by_mask.get(bool(causal), 0) + 1
-    return o
+    return o, lse
 
 
 flash_attention_kernel.launches = 0

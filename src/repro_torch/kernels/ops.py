@@ -1,14 +1,16 @@
 """Public wrappers around the hand-written kernels: config auto-selection,
-GQA head folding.  On CUDA tensors they launch the kernels; on CPU tensors
-the kernels' plain versions run (the decision is the tensors' device,
-nothing else)."""
+GQA head folding, and the attention's autograd.  On CUDA tensors they
+launch the kernels; on CPU tensors the kernels' plain versions run (the
+decision is the tensors' device, nothing else)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import flash_attention_bwd as fkb
 from repro_torch.kernels import matmul as mk
 
 
@@ -22,14 +24,46 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     return mk.matmul_kernel(a, b, config)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with its log-sum-exp saved, and the hand
+    backward kernel (the JAX package's ``_flash_attn`` custom VJP: the
+    residuals are q, k, v, o in the compute dtype and the f32 lse).
+    Second-order gradients raise, as ``_fa_bwd_fused_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, config, causal, window, q_offset):
+        o, lse = fk.flash_attention_kernel(q, k, v, config, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, q_offset)
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = fkb.flash_attention_bwd_kernel(
+            *ctx.saved_tensors, do, causal=causal, window=window,
+            q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, config: Optional[fk.FlashConfig] = None, *,
                     causal=True, window=None):
     """q (B,Sq,Hq,hd), k/v (B,Skv,Hkv,hd) -> (B,Sq,Hq,hd).  (B,H) is the
     kernel grid's batch dimension; query head h reads KV head h // (Hq/Hkv)
     (the JAX package's ``jnp.repeat`` of KV heads, without the copy).  The
-    causal mask is aligned bottom-right (``q_offset = Skv - Sq``)."""
+    causal mask is aligned bottom-right (``q_offset = Skv - Sq``).  Where a
+    gradient is wanted (grad mode on and an input that requires it) the
+    call goes through ``FlashAttention``; otherwise the forward kernel runs
+    alone and writes no lse."""
     Sq, hd = q.shape[1], q.shape[3]
     Skv = k.shape[1]
     config = config or fk.select_config(Sq, Skv, hd, q.dtype)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, config, causal, window,
+                                    Skv - Sq)
     return fk.flash_attention_kernel(q, k, v, config, causal=causal,
                                      window=window, q_offset=Skv - Sq)

@@ -63,3 +63,18 @@ def from_jax_params(params_np: Dict, cfg: C.ModelConfig, *,
              for k, v in flat.items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def jax_ndim(name: str, param: torch.Tensor, cfg: C.ModelConfig) -> int:
+    """The dimensions of the JAX package's leaf that holds the port's
+    parameter ``name``: one more than the tensor's for a block stacked along
+    the period axis (layers below ``n_periods * period`` and every encoder
+    block), the tensor's own for the remainder ``rem<r>`` and the rest.
+    AdamW's decay rule (``ndim >= 2``) reads it there."""
+    parts = name.split(".")
+    period = len(cfg.block_pattern)
+    stacked = (parts[0] == "blocks"
+               and int(parts[1]) < cfg.n_layers // period * period) or \
+        parts[:2] == ["encoder", "blocks"]
+    return param.dim() + int(stacked)
+

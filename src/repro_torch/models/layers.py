@@ -4,8 +4,9 @@ Attribute names mirror the JAX package's parameter keys (``w``, ``b``,
 ``scale``, ``w_in`` ...), so a JAX parameter tree maps onto a module's
 ``state_dict`` by joining keys with dots (``models/convert.py``).  Weights
 keep the JAX ``(d_in, d_out)`` layout: a linear computes ``x @ w``.
-Parameters are created without gradients: the port's forward pass does not
-train in this slice.
+Parameters are created with ``requires_grad=False``, so that inference
+records no graph; training turns gradients on
+(``training.step.build_train_step``).
 """
 from __future__ import annotations
 

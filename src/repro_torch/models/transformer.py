@@ -22,6 +22,12 @@ block kind outside ``PORTED`` raises ``NotImplementedError``.
 new cache; XLA donates the old one's buffers) and reads the position from
 a device tensor, so the step can be captured once as a CUDA graph and
 replayed (``serving/engine.py``).
+
+``train_forward`` is the training forward (the JAX package's ``forward``
+with its aux losses, ``return_hidden`` and ``block_skip``, and per-block
+``torch.utils.checkpoint`` where the JAX package remats its scan body).
+Parameters require no gradient unless a caller turns them on
+(``requires_grad_(True)``, as ``training.step.build_train_step`` does).
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as C
+from repro_torch.kernels import flash_attention_bwd as fkb
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -39,6 +47,7 @@ from repro_torch.models import recurrent as R
 
 PORTED = (C.ATTN, C.LOCAL_ATTN, C.RGLRU, C.CROSS_ATTN, C.ENC_ATTN,
           C.MLSTM, C.SLSTM)
+_ATTENTION = (C.ATTN, C.LOCAL_ATTN, C.CROSS_ATTN, C.ENC_ATTN)
 _XLSTM = (C.MLSTM, C.SLSTM)
 # the ``KVCache`` lists of a recurrent layer's state, in ``Block.forward``'s
 # and ``KVCache.layer``'s order
@@ -110,10 +119,17 @@ class Block(nn.Module):
         conv), the mLSTM's (C, n, m, conv) or the sLSTM's (c, n, h, m)
         after the sequence, for the decode cache.  ``ctx``: the context (B,
         Lx, d) of a ``CROSS_ATTN`` block."""
+        x, state, _ = self.forward_aux(x, cfg, cdt, rope, ctx)
+        return x, state
+
+    def forward_aux(self, x, cfg: C.ModelConfig, cdt, rope=None, ctx=None):
+        """``forward``'s (x, state) and the MoE FFN's aux losses
+        ({"lb_loss", "z_loss"}, or None for a block without MoE): the JAX
+        package's ``apply_block``."""
         h = self.ln1(x, cfg.norm_eps)
         if self.kind in _XLSTM:
             y, state = getattr(self, self._mixer())(h, cdt)
-            return x + y, state
+            return x + y, state, None
         if self.kind == C.RGLRU:
             y, state = self.rec(h, cdt)
         else:
@@ -125,7 +141,8 @@ class Block(nn.Module):
             y, cross = self.xattn(self.ln_x(x, cfg.norm_eps), ctx,
                                   causal=False, compute_dtype=cdt)
             x, state = x + y, state + cross
-        return self._ffn(x, cfg, cdt), state
+        x, aux = self._ffn(x, cfg, cdt)
+        return x, state, aux
 
     def decode(self, x, state, pos, slots, cfg: C.ModelConfig, cdt, rope):
         """One token (``apply_block_decode``).  ``state``: this layer's
@@ -145,16 +162,28 @@ class Block(nn.Module):
         if self.kind == C.CROSS_ATTN:
             x = x + self.xattn.decode_cross(self.ln_x(x, cfg.norm_eps),
                                             *state[2:], compute_dtype=cdt)
-        return self._ffn(x, cfg, cdt)
+        return self._ffn(x, cfg, cdt)[0]
 
     def _ffn(self, x, cfg: C.ModelConfig, cdt):
+        """(x, aux): the MoE's aux losses, None without MoE."""
+        aux = None
         if self.mlp is not None:
             x = x + self.mlp(self.ln2(x, cfg.norm_eps), cdt)
         elif self.moe is not None:
-            y, _ = self.moe(self.ln2(x, cfg.norm_eps), cfg.moe, cfg.mlp_act,
-                            cdt)
+            y, aux = self.moe(self.ln2(x, cfg.norm_eps), cfg.moe,
+                              cfg.mlp_act, cdt)
             x = x + y
-        return x
+        return x, aux
+
+
+def _train_block(blk: Block, x, cfg: C.ModelConfig, cdt, rope, ctx):
+    """One block of ``Transformer.train_forward``: (x, lb_loss, z_loss),
+    tensors only, so that ``checkpoint`` can run it again."""
+    x, _, aux = blk.forward_aux(x, cfg, cdt, rope, ctx)
+    if aux is None:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, zero, zero
+    return x, aux["lb_loss"], aux["z_loss"]
 
 
 def cast_weights_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -297,8 +326,9 @@ class Transformer(nn.Module):
     def reset(self, gen: torch.Generator):
         """Random weights in the JAX package's distributions (normal /
         sqrt(fan_in), embeddings / sqrt(d), zero biases, unit norms)."""
-        for owner, name, _ in self.parts():
-            getattr(owner, name).reset(gen)
+        with torch.no_grad():
+            for owner, name, _ in self.parts():
+                getattr(owner, name).reset(gen)
 
     @property
     def padded_vocab(self) -> int:
@@ -360,28 +390,75 @@ class Transformer(nn.Module):
     def _head(self):
         return self.unembed if self.unembed is not None else self.embed
 
-    @staticmethod
-    def _no_grad_on_card(tokens):
-        if tokens.is_cuda and torch.is_grad_enabled():
-            raise RuntimeError("the model takes no gradients on the card in "
-                               "this slice (the flash backward kernel comes "
-                               "with the training slice); run it under "
-                               "torch.no_grad()")
+    def unembed_weight(self) -> torch.Tensor:
+        """The unembedding's (padded_vocab, d) weight: the embedding's where
+        they are tied (``Model.unembed_params``)."""
+        return self._head().w
+
+    def _check_grad_on_card(self, tokens):
+        """Raise where a gradient taken on the card would reach a layer
+        with no backward there: attention at a head dim that
+        ``flash_attention_bwd`` has no instance of."""
+        cfg = self.cfg
+        if (tokens.is_cuda and torch.is_grad_enabled()
+                and cfg.head_dim not in fkb.HEAD_DIMS
+                and any(k in _ATTENTION for k in cfg.layer_kinds)
+                and any(p.requires_grad for p in self.parameters())):
+            raise RuntimeError(
+                f"{cfg.name}: attention at hd={cfg.head_dim} has no backward "
+                f"kernel on the card (flash_attention_bwd has hd "
+                f"{', '.join(map(str, fkb.HEAD_DIMS))}); run it under "
+                f"torch.no_grad()")
+
+    def _inputs(self, tokens, ctx_embed):
+        """(compute dtype, context, embedded tokens, rope tables over
+        positions 0..S-1) of a forward over the whole sequence."""
+        self._check_grad_on_card(tokens)
+        cfg = self.cfg
+        cdt = getattr(torch, cfg.compute_dtype)
+        ctx = self.context_for(ctx_embed)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+        return (cdt, ctx, self.embed(tokens, cdt),
+                A.rope_tables(positions, cfg.head_dim, cfg.rope_theta))
 
     def forward(self, tokens: torch.Tensor, ctx_embed=None) -> torch.Tensor:
         """``ctx_embed``: the context of a model that ``needs_ctx``, (B,
         ``ctx_len()``, d) (``make_ctx``)."""
-        self._no_grad_on_card(tokens)
         cfg = self.cfg
-        cdt = getattr(torch, cfg.compute_dtype)
-        ctx = self.context_for(ctx_embed)
-        x = self.embed(tokens, cdt)
-        positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-        rope = A.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        cdt, ctx, x, rope = self._inputs(tokens, ctx_embed)
         for blk in self.blocks:
             x, _ = blk(x, cfg, cdt, rope, ctx)
         x = self.final_norm(x, cfg.norm_eps)
         return self._head().unembed(x, cdt)
+
+    def train_forward(self, tokens: torch.Tensor, ctx_embed=None, *,
+                      block_skip: bool = False, return_hidden: bool = False,
+                      remat: bool = False):
+        """The training forward (the JAX package's ``forward``): (logits
+        (B, S, Vp), aux), or with ``return_hidden`` the final-norm hidden
+        states in place of the logits (the fused cross entropy unembeds
+        them itself).  aux = {"lb_loss", "z_loss"}, f32 scalars summed over
+        the layers (zero without MoE).  ``remat``: each block under
+        non-reentrant ``torch.utils.checkpoint``, so the backward runs the
+        block's forward again (its flash kernel included) in place of
+        keeping its activations.  ``block_skip`` (the JAX package's causal
+        block skip) is accepted and changes nothing: the kernels visit
+        every tile, which gives the same loss."""
+        del block_skip
+        cfg = self.cfg
+        cdt, ctx, x, rope = self._inputs(tokens, ctx_embed)
+        lb = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        zl = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        for blk in self.blocks:
+            if remat:
+                x, lb_i, zl_i = checkpoint(_train_block, blk, x, cfg, cdt,
+                                           rope, ctx, use_reentrant=False)
+            else:
+                x, lb_i, zl_i = _train_block(blk, x, cfg, cdt, rope, ctx)
+            lb, zl = lb + lb_i, zl + zl_i
+        x = self.final_norm(x, cfg.norm_eps)
+        aux = {"lb_loss": lb, "z_loss": zl}
+        return (x if return_hidden else self._head().unembed(x, cdt)), aux
 
     def _ring(self, capacity: int) -> int:
         """Slots of a sliding-window layer's ring at decode capacity
@@ -399,7 +476,7 @@ class Transformer(nn.Module):
         and sLSTM layers their state after the prompt; cross-attention
         layers besides the context's K/V, unpadded.  Only the last position
         is normed and unembedded.  ``ctx_embed`` as in ``forward``."""
-        self._no_grad_on_card(tokens)
+        self._check_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         B, S = tokens.shape
@@ -436,7 +513,6 @@ class Transformer(nn.Module):
         layer's context K/V, advances every recurrent state and ``pos``, all
         in place and on the device (no host read of ``pos``: the step is
         graph-capturable).  The caller keeps ``pos`` below the capacity."""
-        self._no_grad_on_card(token)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         pos = cache.pos
