@@ -1,8 +1,9 @@
 // Shared PTX wrappers for the Hopper (sm_90a) kernels of this directory:
-// mbarriers, TMA tile loads (cp.async.bulk.tensor), wgmma shared-memory
-// descriptors, wgmma fence/commit/wait and the bf16 wgmma instructions the
-// kernels issue, plus the host-side tensor-map encoder.  Raw PTX keeps the
-// build at a few seconds per source (no CUTLASS/CuTe headers).
+// mbarriers, TMA tile loads (cp.async.bulk.tensor) and 1-D bulk copies,
+// wgmma shared-memory descriptors, wgmma fence/commit/wait and the bf16
+// wgmma instructions the kernels issue, plus the host-side tensor-map
+// encoder.  Raw PTX keeps the build at a few seconds per source (no
+// CUTLASS/CuTe headers).
 //
 // Shared-memory tiles use the layout TMA writes with a B-byte swizzle
 // (B = 32, 64 or 128): a tile of ROWS rows and COLS bf16 columns is stored
@@ -87,6 +88,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16) from global memory at src
+// into shared memory at dst, both 16-byte aligned; completion is counted
+// in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -5,13 +5,16 @@ Replaces the JAX package's backward ``src/repro/models/attention.py::
 _fa_bwd_scan`` (jnp behind the fused-kernel boundary ``_fa_bwd_fused``;
 the TPU kernel has no backward of its own): dQ, dK and dV from (q, k, v,
 o, lse, dO), the scores recomputed tile by tile with the forward's
-masks (causal with ``q_offset``, sliding window, non-causal, ragged Skv),
-f32 arithmetic, gradients in the input type.  Three kernels, deterministic
-(no atomics): D = rowsum(dO * O); dK and dV a block per (64 keys, batch,
-KV head), which sums the G query heads of a GQA group inside the block;
-dQ a block per (64 query rows, batch, query head).  Both types run FFMA
-on the CUDA cores (bfloat16 is widened on its way into shared memory).
-Head dims ``HEAD_DIMS``; any other raises.
+masks (causal with ``q_offset``, sliding window, non-causal, ragged Sq and
+Skv), gradients in the input type.  Deterministic (no atomics): a pass
+writes each row's (lse, D = rowsum(dO * O)); dK and dV a block per (64
+keys, batch, query head), as f32 partials that a last pass sums over each
+GQA group in head order; dQ a block per (64 query rows, batch, query
+head).  Each block visits only the tiles that hold a pair the mask keeps
+(``tile_range``).  bfloat16 runs on the tensor cores (``wgmma`` + TMA, P
+and dS rounded to bf16 as the products' operands, f32 sums); float32 is
+true f32 FFMA with ``cp.async``.  Head dims ``HEAD_DIMS``; any other
+raises.
 """
 from __future__ import annotations
 
@@ -27,19 +30,59 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNELS = ("dkdv", "dq")   # the two tile kernels, in the smem getter's order
+KERNELS = ("dkdv", "dq")   # the two tile kernels, in the C getters' order
+AXES = ("q", "kv")         # tile_range's axes, in the C function's order
 TILE = 64                  # query rows and keys of a tile
 NEG_INF = -1e30
 
 
-def smem_bytes(hd: int, kernel: str) -> int:
-    """Dynamic shared memory of one block of ``kernel`` at head dim ``hd``,
-    as the C++ launches it: f32 tiles of 64 rows padded to hd + 4 (K, V,
-    Q, dO), score tiles of 64 x 68 (P and dS for ``dkdv``, dSᵀ for
-    ``dq``) and the tile's lse and D."""
-    tiles = 4 * TILE * (hd + 4)
-    scores = (2 if kernel == "dkdv" else 1) * TILE * (TILE + 4)
-    return 4 * (tiles + scores + 2 * TILE)
+def tile_range(t: int, axis: str, Sq: int, Skv: int, *, causal=True,
+               window: Optional[int] = None, q_offset: int = 0):
+    """[lo, hi) of the tiles that tile ``t`` visits along ``axis``, as the
+    kernels' ``tile_span`` gives it: ``"q"``, the Q tiles of KV tile t (the
+    dK/dV kernel); ``"kv"``, the KV tiles of Q tile t (the dQ kernel).
+    Every (q, k) pair the mask keeps lies in a visited tile and every
+    skipped tile holds none.  Under the causal mask a row that keeps no key
+    (qp < 0, or past every key's window) has P = 1 on every key (the mask
+    is additive), so a mask with such rows visits every tile."""
+    n = -(-(Sq if axis == "q" else Skv) // TILE)
+    o, w = q_offset, window or 0
+    dead = o < 0 or (w > 0 and o + Sq - 1 > Skv - 2 + w)
+    if not causal or dead:
+        return 0, n
+    clamp = lambda x: min(max(x, 0), n)
+    if axis == "q":
+        k0, k1 = t * TILE, min(t * TILE + TILE, Skv)
+        lo = clamp((k0 - o) // TILE)
+        if lo < n and o + min(lo * TILE + TILE, Sq) - 1 < k0:
+            lo = n
+        hi = clamp((k1 - 2 + w - o) // TILE + 1) if w > 0 else n
+    else:
+        q0, q1 = t * TILE, min(t * TILE + TILE, Sq)
+        hi = clamp((o + q1 - 1) // TILE + 1)
+        lo = 0
+        if w > 0:
+            first = o + q0 - w + 1
+            lo = clamp(first // TILE)
+            if lo < n and min(lo * TILE + TILE, Skv) - 1 < first:
+                lo = n
+    return lo, max(lo, hi)
+
+
+def smem_bytes(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of ``kernel`` at head dim ``hd``
+    in ``dtype``, as the C++ launches it.  bfloat16: 1,024 bytes of
+    alignment slack, six swizzled [64][hd] bf16 tiles (K, V and two stages
+    of Q and dO for ``dkdv``; Q, dO and two stages of K and V for ``dq``),
+    ``dkdv``'s two stages of 64 rows' (lse, D) and 256 bytes of barriers.
+    float32: five [64][hd + 4] f32 tiles (K, V, two Q stages and dO; Q,
+    dO, two K stages and V), one 64 x 68 score tile and (lse, D) of two Q
+    tiles (``dkdv``) or one (``dq``)."""
+    if dtype == torch.bfloat16:
+        return 1024 + 6 * TILE * hd * 2 \
+            + (2 * TILE * 8 if kernel == "dkdv" else 0) + 256
+    ld = (2 if kernel == "dkdv" else 1) * 2 * TILE
+    return 4 * (5 * TILE * (hd + 4) + TILE * (TILE + 4) + ld)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
@@ -91,20 +134,42 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
 def _entry():
     lib = build.load("flash_attention_bwd")
     fn = lib.pm2lat_flash_attention_bwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + \
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + \
         [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def library_smem(hd: int, kernel: str) -> int:
-    """The dynamic shared memory the built library launches ``kernel`` at
-    head dim ``hd`` with (-1 if it has no such instance)."""
-    lib = build.load("flash_attention_bwd")
-    fn = lib.pm2lat_flash_attention_bwd_smem
-    fn.argtypes = [ctypes.c_int] * 2
+def _getter(name: str):
+    fn = getattr(build.load("flash_attention_bwd"),
+                 f"pm2lat_flash_attention_bwd_{name}")
+    fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_longlong
-    return fn(hd, KERNELS.index(kernel))
+    return fn
+
+
+def library_smem(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
+    """The dynamic shared memory the built library launches ``kernel`` at
+    head dim ``hd`` in ``dtype`` with (-1 if it has no such instance)."""
+    return _getter("smem")(hd, DTYPES[dtype], KERNELS.index(kernel))
+
+
+def library_blocks_per_sm(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
+    """Resident blocks per SM of ``kernel`` at head dim ``hd`` in
+    ``dtype``, from the card's occupancy calculator."""
+    return _getter("blocks_per_sm")(hd, DTYPES[dtype], KERNELS.index(kernel))
+
+
+def library_tile_range(t: int, axis: str, Sq: int, Skv: int, *, causal=True,
+                       window: Optional[int] = None, q_offset: int = 0):
+    """``tile_range`` as the built library's ``tile_span`` computes it."""
+    fn = build.load("flash_attention_bwd").pm2lat_flash_attention_bwd_tile_span
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    span = (ctypes.c_int * 2)()
+    fn(t, AXES.index(axis), Sq, Skv, int(bool(causal)), int(window or 0),
+       int(q_offset), span)
+    return span[0], span[1]
 
 
 def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal=True,
@@ -145,14 +210,18 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal=True,
         raise ValueError(f"flash_attention_bwd_kernel: no backward instance "
                          f"at hd={hd} (csrc/flash_attention_bwd.cu has hd "
                          f"{', '.join(map(str, HEAD_DIMS))})")
-    q, k, v, o, lse = (t.contiguous() for t in (q, k, v, o, lse))
-    do = do.to(q.dtype).contiguous()
+    q, k, v, o, lse = (build.aligned16(t.contiguous())
+                       for t in (q, k, v, o, lse))
+    do = build.aligned16(do.to(q.dtype).contiguous())
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    ld = torch.empty((B, H, -(-Sq // TILE) * TILE, 2), **f32)
+    part = torch.empty((2, B, Skv, H, hd), **f32) if H != Hkv else None
     lib, fn = _entry()
     err = fn(hd, DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), do.data_ptr(), lse.data_ptr(), D.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Skv,
+             o.data_ptr(), do.data_ptr(), lse.data_ptr(), ld.data_ptr(),
+             None if part is None else part.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Skv,
              int(bool(causal)), int(window or 0), int(q_offset),
              1.0 / math.sqrt(hd),
              torch._C._cuda_getCurrentRawStream(q.get_device()))

@@ -183,22 +183,109 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_cuda_instances_are_the_head_dims_in_both_types():
     """csrc/flash_attention_bwd.cu instantiates each of ``HEAD_DIMS`` once
-    per type, and the shared-memory getter answers for the same head
-    dims."""
+    per type (float32 through ``launch_f32``, the FFMA kernels; bfloat16
+    through ``launch_bf16``, the wgmma kernels), and the shared-memory
+    getter answers for the same head dims."""
     text = (build.CSRC / "flash_attention_bwd.cu").read_text()
     inst = re.findall(r"^\s*PM2LAT_FA_BWD\((\w+), (\d), (\d+)\)\s*$", text,
                       re.M)
     assert sorted((int(dt), int(hd)) for _, dt, hd in inst) == sorted(
         (dt, hd) for dt in fkb.DTYPES.values() for hd in fkb.HEAD_DIMS)
-    assert {t for t, dt, _ in inst} == {"float", "__nv_bfloat16"}
+    assert {(launch, int(dt)) for launch, dt, _ in inst} == {
+        ("launch_f32", fkb.DTYPES[torch.float32]),
+        ("launch_bf16", fkb.DTYPES[torch.bfloat16])}
+    smem = re.findall(r"^\s*PM2LAT_FA_BWD_SMEM\((\d+)\)\s*$", text, re.M)
+    assert tuple(map(int, smem)) == fkb.HEAD_DIMS
     assert "flash_attention_bwd" in build.SOURCES
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", fkb.HEAD_DIMS)
-def test_bwd_smem_is_the_tile_layout(hd):
-    """dK/dV: K, V, Q, dO [64][hd + 4] f32, P and dS [64][68], lse and D;
-    dQ: Q, dO, K, V, dS^T and lse, D; both within one block's 227 KB."""
-    assert fkb.smem_bytes(hd, "dkdv") == 4 * (4 * 64 * (hd + 4)
-                                              + 2 * 64 * 68 + 128)
-    assert fkb.smem_bytes(hd, "dq") == 4 * (4 * 64 * (hd + 4) + 64 * 68 + 128)
-    assert max(fkb.smem_bytes(hd, k) for k in fkb.KERNELS) <= fk.SMEM_BUDGET
+def test_bwd_smem_is_the_tile_layout(hd, dtype):
+    """bfloat16: 1 KB of alignment slack, six swizzled [64][hd] bf16 tiles
+    (K, V and two stages of Q and dO; Q, dO and two stages of K and V),
+    dK/dV's two stages of 64 rows' (lse, D) and 256 bytes of barriers.
+    float32: five [64][hd + 4] f32 tiles (K, V, two Q stages, dO; Q, dO,
+    two K stages, V), one [64][68] score tile and (lse, D) of two Q tiles
+    (dK/dV) or one (dQ).  All within one block's 227 KB; the float32
+    kernels up to hd 64 within half an SM's 228 KB (two blocks an SM)."""
+    dt = getattr(torch, dtype)
+    if dt == torch.bfloat16:
+        tiles = 1024 + 6 * 64 * hd * 2 + 256
+        assert fkb.smem_bytes(hd, "dkdv", dt) == tiles + 2 * 64 * 8
+        assert fkb.smem_bytes(hd, "dq", dt) == tiles
+    else:
+        tiles = 5 * 64 * (hd + 4) + 64 * 68
+        assert fkb.smem_bytes(hd, "dkdv", dt) == 4 * (tiles + 256)
+        assert fkb.smem_bytes(hd, "dq", dt) == 4 * (tiles + 128)
+        if hd <= 64:
+            assert all(2 * (fkb.smem_bytes(hd, k, dt) + build.BLOCK_RESERVED_SMEM)
+                       <= build.SM_SMEM for k in fkb.KERNELS)
+    assert max(fkb.smem_bytes(hd, k, dt) for k in fkb.KERNELS) \
+        <= fk.SMEM_BUDGET
+
+
+# (Sq, Skv, causal, window, q_offset) for the tile bounds: CASES' masks,
+# and a q_offset > 0 with Sq < Skv, windows narrower than a tile, lengths
+# that are no multiple of 64, the train path's square, and rows that keep
+# no key (q_offset < 0; qp past every key's window)
+TILE_CASES = {
+    **{name: (c[1], c[2], c[6], c[7], c[2] - c[1]) for name, c in CASES.items()},
+    "train": (512, 512, True, None, 0),
+    "offset": (100, 229, True, None, 129),
+    "offset_window": (160, 300, True, 40, 140),
+    "narrow_window": (300, 300, True, 16, 0),
+    "window_one": (130, 130, True, 1, 0),
+    "ragged_square": (190, 190, True, 50, 0),
+    "ragged_noncausal": (200, 333, False, None, 133),
+    "dead_head": (200, 100, True, None, -100),
+    "dead_tail": (128, 64, True, 16, 200),
+}
+
+
+def _kept_tiles(Sq, Skv, causal, window, q_offset):
+    """(nq, nk) booleans: tile (i, j) holds a (q, k) pair whose P the
+    reference does not zero: a pair ``_block_mask`` keeps, or any pair of
+    a row it keeps no key for (the additive mask leaves such rows P = 1)."""
+    nq, nk = -(-Sq // fkb.TILE), -(-Skv // fkb.TILE)
+    spec = jA.AttnSpec(causal=causal, window=window)
+    mask = np.asarray(jA._block_mask(jnp.arange(Sq) + q_offset,
+                                     jnp.arange(nk * fkb.TILE), spec, Skv))
+    kept = mask == 0
+    kept[~kept.any(1)] = True
+    kept = np.pad(kept, ((0, nq * fkb.TILE - Sq), (0, 0)))
+    return kept.reshape(nq, fkb.TILE, nk, fkb.TILE).any((1, 3))
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_tile_range_covers_the_mask(case):
+    """Both kernels' tile bounds against the JAX package's own mask: every
+    tile with a kept pair is visited by both, every other one by neither
+    (the skip is exact), so the two passes visit the same tiles."""
+    Sq, Skv, causal, window, q_offset = TILE_CASES[case]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = _kept_tiles(Sq, Skv, causal, window, q_offset)
+    nq, nk = want.shape
+    by_kv = np.zeros_like(want)
+    for j in range(nk):
+        lo, hi = fkb.tile_range(j, "q", Sq, Skv, **kw)
+        assert 0 <= lo <= hi <= nq
+        by_kv[lo:hi, j] = True
+    by_q = np.zeros_like(want)
+    for i in range(nq):
+        lo, hi = fkb.tile_range(i, "kv", Sq, Skv, **kw)
+        assert 0 <= lo <= hi <= nk
+        by_q[i, lo:hi] = True
+    np.testing.assert_array_equal(by_kv, want)
+    np.testing.assert_array_equal(by_q, want)
+
+
+def test_tile_range_at_the_train_shape():
+    """qwen2-0.5b's causal 512 x 512: 36 of each head's 64 tile pairs; KV
+    tile j visits Q tiles j..7, Q tile i KV tiles 0..i."""
+    assert [fkb.tile_range(j, "q", 512, 512) for j in range(8)] == \
+        [(j, 8) for j in range(8)]
+    assert [fkb.tile_range(i, "kv", 512, 512) for i in range(8)] == \
+        [(0, i + 1) for i in range(8)]
+    assert sum(hi - lo for lo, hi in (fkb.tile_range(j, "q", 512, 512)
+                                      for j in range(8))) == 36
