@@ -63,7 +63,14 @@ through the hand flash backward kernel) with its step-0 checkpoint, the
 step timed and split into forward, backward and optimizer against PM2Lat's
 training step, one step's gradients against the plain attention on the
 card, and a run with injected failures at reduced size held against an
-uninterrupted one (``scripts/torch_train_restart.py``).  Every
+uninterrupted one (``scripts/torch_train_restart.py``).  Then the
+distributed path: the same launcher on a ``DeviceMesh`` under torchrun
+(``scripts/torch_dist_train.py``, one process a rank): one NCCL rank at
+``--mesh 1x1`` through the DTensor path in float32 and bf16, its float32
+losses held against the training path's, and two gloo ranks sharing the
+card, ``compressed_psum`` over them on the card held against the host's,
+bit for bit (gloo cannot carry DTensor's collectives on CUDA tensors in
+this torch, so no two-rank training runs on one card).  Every
 phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
@@ -409,6 +416,18 @@ TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
 # be equal): a nondeterministic sum moves a gradient's last bits (~1e-7 of
 # it), which ten steps at lr 1e-3 carry to well under 1e-5 of the loss.
 TRAIN_RESTART_RTOL = 1e-5
+# The distributed path (``phase_dist``): the launcher under torchrun, one
+# process a rank, at the training path's full width and shape.  Its losses
+# against the training path's unsharded launcher at the same steps (the
+# learning rate is in warm-up there, so the schedules agree): 2e-4
+# relative, the JAX package's sharded-against-one-device limit
+# (tests/test_distributed.py).
+DIST_SCRIPT = ROOT / "scripts" / "torch_dist_train.py"
+DIST_CKPT = ROOT / "build" / "dist_ckpt"
+DIST_ONE_STEPS = 3          # one NCCL rank, each dtype
+DIST_PSUM_RANKS = 2         # gloo ranks sharing the card: the codec only
+DIST_RTOL = 2e-4
+DIST_TIMEOUT = 300
 
 
 def emit(phase: str, **fields):
@@ -4113,6 +4132,104 @@ def phase_train(store):
     return out
 
 
+def phase_dist(train):
+    """The launcher on a ``DeviceMesh`` (``scripts/torch_dist_train.py``
+    under torchrun) at the training path's full width and shape: (a) one
+    NCCL rank at ``--mesh 1x1`` (parameters, moments and batches DTensors,
+    the flash kernels through the ``local_map`` boundary), float32 and
+    bf16, DIST_ONE_STEPS steps, its float32 losses within DIST_RTOL of
+    phase ``train``'s launcher at the same steps and its step time beside
+    that launcher's; (b) DIST_PSUM_RANKS gloo ranks sharing the card:
+    ``compressed_psum`` of CUDA tensors over them equal bit for bit to the
+    host's on the same rows.  Two ranks train on no card here: gloo
+    carries DTensor's functional collectives on CUDA tensors into a
+    segfault in this torch (``PERF.md`` §7), and NCCL takes one rank a
+    card.  The hand-kernel launches are counted in the rank processes,
+    from 0, and summed (``launches``).  Fails on any check."""
+    t0 = time.perf_counter()
+    runs, launches = [], {"matmul": 0, "flash_attention": 0,
+                          "flash_attention_bwd": 0}
+    for dname in DTYPES:
+        recs = dist_launch(1, [
+            "--", "--arch", MODEL, "--steps", str(DIST_ONE_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--compute-dtype",
+            dname, "--mesh", "1x1"], f"1x1_{dname}")
+        rec = dist_record(recs, dname, train[dname]["launcher"])
+        emit("dist", **rec)
+        runs.append(rec)
+        for k, n in recs[0]["launches"].items():
+            launches[k] += n
+    recs = dist_launch(DIST_PSUM_RANKS, ["--psum-check", "--dist-backend",
+                                         "gloo"], "psum")
+    psum = {"ranks": len(recs), "backend": recs[0]["backend"],
+            "devices": [r["device"] for r in recs],
+            "by_rank": [r["psum"] for r in recs]}
+    psum["ok"] = all(p["bit_equal"] for p in psum["by_rank"])
+    emit("dist_psum", **psum)
+    if not psum["ok"]:
+        raise AssertionError(f"dist: compressed_psum on the card differs "
+                             f"from the host's: {psum}")
+    here = hand_launches()
+    if any(here.values()):
+        raise AssertionError(f"phase dist launched in the parent: {here}")
+    return {"runs": runs, "psum": psum, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def dist_launch(nproc, args, tag):
+    """torchrun of ``scripts/torch_dist_train.py`` with ``args`` (with a
+    ``--ckpt-dir`` of its own after a launcher's): each rank's record."""
+    prefix = OUT / f"dist_{tag}_rank"
+    ckpt = DIST_CKPT / tag
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for old in OUT.glob(f"dist_{tag}_rank*.json"):
+        old.unlink()
+    if "--" in args:
+        args = args + ["--ckpt-dir", str(ckpt), "--ckpt-every",
+                       str(DIST_ONE_STEPS + 1)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), str(DIST_SCRIPT), "--record",
+           str(prefix), *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=DIST_TIMEOUT)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (OUT / f"dist_{tag}.log").write_text(out.stdout + out.stderr)
+    if out.returncode:
+        raise AssertionError(f"dist {tag}: exit {out.returncode}\n"
+                             f"{out.stderr[-4000:]}")
+    return [json.loads(Path(f"{prefix}{r}.json").read_text())
+            for r in range(nproc)]
+
+
+def dist_record(recs, dname, ref):
+    """One run's losses and step time against phase ``train``'s launcher
+    (``ref``), its flash launches, checks."""
+    res = recs[0]["result"]
+    losses = res["losses"]
+    want = ref["losses"][:len(losses)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    step_ms = lambda r: float(np.median(r["step_seconds"][1:])) * 1e3
+    rec = {"mesh": res["mesh"], "ranks": len(recs), "dtype": dname,
+           "backend": recs[0]["backend"], "losses": losses,
+           "train_losses": want, "rel_diff": rel,
+           "step_ms": step_ms(res), "step_ms_all": res["step_seconds"],
+           "train_step_ms": step_ms(ref), "wall_s": res["wall_s"],
+           "launches": recs[0]["launches"], "device": recs[0]["device"]}
+    checks = {"finite": bool(np.isfinite(losses).all()),
+              "steps": res["steps"] == list(range(DIST_ONE_STEPS)),
+              "flash_launched": recs[0]["launches"]["flash_attention"] > 0
+              and recs[0]["launches"]["flash_attention_bwd"] > 0}
+    if dname == "float32":
+        checks["within_rtol"] = max(rel) < DIST_RTOL
+    rec["checks"] = checks
+    if not all(checks.values()):
+        raise AssertionError(f"dist 1x1 {dname}: {checks}: {rec}")
+    return rec
+
+
 def train_launch(dname):
     """``launch.train.run`` at full width: the losses (finite, the last
     below the first), the step-0 checkpoint (its bytes against the state's
@@ -4134,6 +4251,7 @@ def train_launch(dname):
     ck = res["checkpoints"]
     losses = res["losses"]
     rec = {"losses": losses, "wall_s": res["wall_s"],
+           "step_seconds": res["step_seconds"],
            "restarts": res["restarts"],
            "straggler_events": res["straggler_events"],
            "checkpoints": ck, "state_bytes": state_bytes,
@@ -4843,10 +4961,14 @@ def main() -> int:
     reset_launches()
     train = phase_train(store)
     by_path["train"] = hand_launches()
+    reset_launches()
+    dist = phase_dist(train)
+    by_path["dist"] = dist["launches"]
     emit("path_launches", **by_path)
-    for name in ("flash_attention", "flash_attention_bwd"):
-        if by_path["train"][name] == 0:
-            raise AssertionError(f"the train path never launched {name}")
+    for path in ("train", "dist"):
+        for name in ("flash_attention", "flash_attention_bwd"):
+            if by_path[path][name] == 0:
+                raise AssertionError(f"the {path} path never launched {name}")
     if any(by_path["xlstm"].values()):
         raise AssertionError(f"the xlstm path launched a hand kernel: "
                              f"{by_path['xlstm']}")
@@ -4872,7 +4994,7 @@ def main() -> int:
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
                   encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
-                  train=train,
+                  train=train, dist=dist,
                   kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)

@@ -15,6 +15,11 @@ to the host before it returns, since training goes on updating the live
 tensors in place.  bfloat16 has no numpy type: such a leaf is stored as
 its 16 bits (uint16) and ``tree.json`` records ``bfloat16``, so it comes
 back bit for bit.
+
+Under a process group of more than one rank the state's DTensors are
+gathered whole on every rank (a collective: every rank calls ``save``),
+rank 0 alone writes the files a one-device run writes, ``wait`` ends at a
+barrier, and ``restore`` gives each rank its own chunk of every DTensor.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as sh
 
 _SEP = ";"
 _BITS = {torch.bfloat16: np.uint16}     # types numpy cannot hold, as raw bits
@@ -53,7 +61,7 @@ def leaves(tree, prefix=()):
 
 def _to_numpy(t: torch.Tensor):
     """(host array, dtype name): a copy, never a view of ``t``."""
-    t = t.detach().to("cpu", copy=True)
+    t = sh.full(t.detach()).to("cpu", copy=True)
     if t.dtype in _BITS:
         return t.view(torch.int16).numpy().view(_BITS[t.dtype]), \
             str(t.dtype).replace("torch.", "")
@@ -76,7 +84,10 @@ class CheckpointStore:
         self._errors = []
         self.writes = []       # {"step", "bytes", "seconds"} of each write
         self._worker = None
-        if async_write:
+        self._group = dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        self.writer = not self._group or dist.get_rank() == 0
+        if async_write and self.writer:
             self._worker = threading.Thread(target=self._drain, daemon=True)
             self._worker.start()
 
@@ -85,6 +96,8 @@ class CheckpointStore:
         """Copy ``state`` to the host now and write it, on the writer thread
         unless the store is synchronous or ``block``."""
         arrays = _flatten(state)
+        if not self.writer:
+            return
         if self._async and not block:
             self._q.put((step, arrays))
         else:
@@ -92,8 +105,11 @@ class CheckpointStore:
 
     def wait(self):
         """Block until every queued write is on disk; raise the first error
-        a queued write met."""
+        a queued write met.  Under a process group every rank waits here
+        until rank 0's writes are on disk."""
         self._q.join()
+        if self._group:
+            dist.barrier()
         if self._errors:
             err, self._errors = self._errors[0], []
             raise RuntimeError("checkpoint write failed") from err
@@ -169,7 +185,7 @@ class CheckpointStore:
                     t = torch.from_numpy(arr.view(np.int16)).view(leaf.dtype)
                 else:
                     t = torch.from_numpy(arr)
-                leaf.copy_(t)
+                sh.local(leaf).copy_(sh.local_chunk(t, leaf))
         return like, step
 
     def restore_latest(self, like) -> Optional[Tuple[Any, int]]:

@@ -7,6 +7,8 @@ loss visibly falls within a few hundred steps.  ``batch_at(step)`` is a
 pure function of (seed, step, host): a checkpoint restart resumes
 mid-stream with no stored iterator state.  The draws are the reference's,
 numpy's, so the tokens equal its tokens; they go to the requested device.
+Every rank of a mesh draws the same global batch from ``seed``;
+``lay_out`` makes it DTensors laid out by ``specs.batch_specs``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve
+from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import specs as sp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,3 +69,13 @@ class SyntheticLM:
                 seq[b, start:start + len(span)] = span
         seq = torch.from_numpy(seq.astype(np.int64)).to(self.device)
         return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
+
+
+def lay_out(batch: dict) -> dict:
+    """Under a ``sharding.mesh_context``: each leaf of the global batch as a
+    DTensor laid out by ``specs.batch_specs`` (the batch over dp where it
+    divides; each rank keeps its chunk); without a mesh the batch itself."""
+    if sh.current_mesh() is None:
+        return batch
+    specs = sp.batch_specs(batch)
+    return {k: sh.distribute(t, specs[k]) for k, t in batch.items()}

@@ -1,6 +1,9 @@
 """Fault-tolerant training driver: checkpoint and restart, failure
-injection, straggler detection (the JAX package's ``ft/driver.py``; its
-elastic re-mesh, ``ft/elastic.py``, waits for the distributed slice).
+injection, straggler detection (the JAX package's ``ft/driver.py``; the
+elastic re-mesh is ``ft/elastic.py``).  On a mesh every rank runs the
+loop: the failures are injected at the same steps on every rank, and the
+store's ``wait`` holds every rank until rank 0's checkpoint is on disk
+before any restores it.
 
   - ``FailureInjector`` raises ``SimulatedFailure`` at configured steps (a
     stand-in for a dead host or a preempted job).

@@ -23,7 +23,10 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -51,6 +54,7 @@ def rope_tables(positions, head_dim: int, theta: float):
 def rotate(x, cos, sin):
     """Half-split rotation of x (..., S, H, hd) by ``rope_tables``, in f32,
     cast back to x's type: (x1 cos - x2 sin, x2 cos + x1 sin)."""
+    cos, sin = sh.replicate_like(cos, x), sh.replicate_like(sin, x)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return (x * cos + torch.cat([x2, x1], -1) * sin).to(x.dtype)
 
@@ -82,14 +86,29 @@ class Attention(nn.Module):
         """q from x; k and v from ``ctx`` where given, else from x
         (``_project_qkv``)."""
         cfg = self.cfg
-        B = x.shape[0]
         src = x if ctx is None else ctx
-        q = self.wq(x, compute_dtype).reshape(B, -1, cfg.n_heads, cfg.head_dim)
-        k = self.wk(src, compute_dtype).reshape(B, -1, cfg.n_kv_heads,
-                                                cfg.head_dim)
-        v = self.wv(src, compute_dtype).reshape(B, -1, cfg.n_kv_heads,
-                                                cfg.head_dim)
-        return q, k, v
+        q = self._heads(self.wq(x, compute_dtype), cfg.n_heads)
+        k = self._heads(self.wk(src, compute_dtype), cfg.n_kv_heads)
+        v = self._heads(self.wv(src, compute_dtype), cfg.n_kv_heads)
+        return (sh.constrain(q, "dp", None, "tp", None),
+                sh.constrain(k, "dp", None, "tp", None),
+                sh.constrain(v, "dp", None, "tp", None))
+
+    def _heads(self, y, n: int):
+        """(B, S, n * hd) -> (B, S, n, hd).  On a mesh whose 'model' extent
+        does not divide the n heads, the projection is first replicated
+        there (its features may be split mid-head)."""
+        if n % sh.tp_size():
+            y = sh.constrain(y, "dp", None, None)
+        return y.reshape(y.shape[0], -1, n, self.cfg.head_dim)
+
+    def _merge(self, o):
+        """(B, S, n, hd) -> (B, S, n * hd).  Where the 'model' extent does
+        not divide the heads, ``wo`` splits the merged features' gradient
+        over 'model' mid-head: it is laid out as the (replicated) merged
+        output before the backward splits it into heads."""
+        y = o.reshape(o.shape[0], o.shape[1], -1)
+        return sh.keep_grad_layout(y) if o.shape[2] % sh.tp_size() else y
 
     def forward(self, x, ctx=None, *, causal=True, window=None,
                 compute_dtype=None, rope=None):
@@ -98,15 +117,16 @@ class Attention(nn.Module):
         Lx, d): cross attention, K and V from it, never rotated.  ``rope``:
         (cos, sin) from ``rope_tables`` over positions 0..S-1, computed here
         when None; False rotates nothing (the encoder)."""
-        B, S, _ = x.shape
         q, k, v = self._project(x, compute_dtype, ctx)
         if rope is not False and ctx is None:
             if rope is None:
-                rope = rope_tables(torch.arange(S, device=x.device)[None, :],
+                rope = rope_tables(torch.arange(x.shape[1],
+                                                device=x.device)[None, :],
                                    self.cfg.head_dim, self.cfg.rope_theta)
             q, k = rotate(q, *rope), rotate(k, *rope)
         o = ops.flash_attention(q, k, v, causal=causal, window=window)
-        return self.wo(o.reshape(B, S, -1), compute_dtype), (k, v)
+        o = sh.constrain(o, "dp", None, "tp", None)
+        return self.wo(self._merge(o), compute_dtype), (k, v)
 
     def decode(self, x, k_cache, v_cache, pos, slot, slot_positions, *,
                window=None, compute_dtype=None, rope):
@@ -122,10 +142,12 @@ class Attention(nn.Module):
         B = x.shape[0]
         q, k, v = self._project(x, compute_dtype)
         q, k = rotate(q, *rope), rotate(k, *rope)
-        k_cache.index_copy_(2, slot, k.to(k_cache.dtype).transpose(1, 2))
-        v_cache.index_copy_(2, slot, v.to(v_cache.dtype).transpose(1, 2))
-        o = decode_attention(q, k_cache, v_cache, slot_positions, pos,
+        write_slot_(k_cache, k.to(k_cache.dtype).transpose(1, 2), slot)
+        write_slot_(v_cache, v.to(v_cache.dtype).transpose(1, 2), slot)
+        o = decode_attention(q, constrain_kv_cache(k_cache),
+                             constrain_kv_cache(v_cache), slot_positions, pos,
                              window=window)
+        o = sh.constrain(o, "dp", None, "tp", None)
         return self.wo(o.reshape(B, 1, -1), compute_dtype)
 
     def decode_cross(self, x, k_cache, v_cache, *, compute_dtype=None):
@@ -136,10 +158,53 @@ class Attention(nn.Module):
         is read on the host.  Returns (B, 1, d)."""
         cfg = self.cfg
         B, Lx = x.shape[0], k_cache.shape[2]
-        q = self.wq(x, compute_dtype).reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = sh.constrain(self._heads(self.wq(x, compute_dtype), cfg.n_heads),
+                         "dp", None, "tp", None)
         o = decode_attention(q, k_cache, v_cache,
                              torch.arange(Lx, device=k_cache.device), Lx)
+        o = sh.constrain(o, "dp", None, "tp", None)
         return self.wo(o.reshape(B, 1, -1), compute_dtype)
+
+
+def constrain_kv_cache(kc):
+    """A head-major cache (B, Hkv, W, hd): heads over 'model' where the
+    extent divides them, else the cache's sequence (the JAX package's
+    ``_constrain_kv_cache``); a cache laid out by ``specs.cache_specs`` is
+    returned as it is."""
+    if kc.shape[1] % sh.tp_size() == 0:
+        return sh.constrain(kc, "dp", "tp", None, None)
+    return sh.constrain(kc, "dp", None, "tp", None)
+
+
+def write_slot_(cache, new, slot):
+    """cache (B, Hkv, W, hd) <- new (B, Hkv, 1, hd) at ``slot`` (a
+    one-element tensor), in place.  A DTensor cache, laid out by
+    ``specs.cache_specs`` (batch and heads, or else its sequence, sharded),
+    is written on each rank's shard: the token is laid out as the cache
+    (its one position replicated), and a rank whose slots hold ``slot``
+    writes it, found on the device by comparing ``slot`` with the shard's
+    positions."""
+    if not sh.is_sharded(cache):
+        cache.index_copy_(2, slot, new)
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    by_seq = [p.is_shard(2) for p in pl]
+    new = new.redistribute(mesh, [Replicate() if s else p
+                                  for p, s in zip(pl, by_seq)]).to_local()
+    local = cache.to_local()
+    if not any(by_seq):
+        local.index_copy_(2, slot, new)
+        return
+    # the shard's first position: mesh dims that split the sequence, the
+    # first the major split
+    coord, size, first = mesh.get_coordinate(), cache.shape[2], 0
+    for j, s in enumerate(by_seq):
+        if s:
+            size //= mesh.size(j)
+            first += coord[j] * size
+    sel = (torch.arange(first, first + size, device=local.device)
+           == slot)[None, None, :, None]
+    local.copy_(torch.where(sel, new, local))
 
 
 def _bmm_f32(a, b):
@@ -164,7 +229,15 @@ def decode_attention(q, k_cache, v_cache, slot_positions, pos, window=None):
     h // G (q reshaped to (B, Hkv, G, hd), no repeat), slots valid where
     0 <= position <= pos (and > pos - window), invalid scores set to
     NEG_INF, softmax in f32.  Scores and the output accumulate in f32 by
-    ``_bmm_f32``; q is cast to the cache's type and P to V's, as there."""
+    ``_bmm_f32``; q is cast to the cache's type and P to V's, as there.
+
+    DTensor q and caches (a sharded model) cross into this function through
+    ``local_map``: batch and heads laid out as at the flash kernel's
+    boundary (``ops.attention_placements``), each rank attending with its
+    own; a cache sharded over its sequence is gathered there."""
+    if sh.is_sharded(q):
+        return _sharded_decode_attention(q, k_cache, v_cache, slot_positions,
+                                         pos, window)
     B, _, Hq, hd = q.shape
     Hkv, W = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -178,6 +251,20 @@ def decode_attention(q, k_cache, v_cache, slot_positions, pos, window=None):
     p = torch.softmax(s, dim=-1)
     o = _bmm_f32(p.to(v_cache.dtype), v_cache.reshape(B * Hkv, W, hd))
     return o.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, slot_positions, pos,
+                              window):
+    mesh = q.device_mesh
+    B, _, Hq, _ = q.shape
+    Hkv = k_cache.shape[1]
+    pl_q = ops.attention_placements(mesh, B, Hq, Hkv)
+    pl_c = ops.attention_placements(mesh, B, Hq, Hkv, heads_at=1)
+    fn = local_map(lambda q_, k_, v_: decode_attention(
+        q_, k_, v_, slot_positions, pos, window=window),
+        out_placements=pl_q, in_placements=(pl_q, pl_c, pl_c),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k_cache, v_cache)
 
 
 def ring_slots(pos, W: int):

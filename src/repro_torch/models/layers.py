@@ -15,6 +15,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.distributed import sharding as sh
 
 
 def pad_vocab(vocab_size: int, multiple: int = 256) -> int:
@@ -93,7 +97,24 @@ class MLP(nn.Module):
             h = act_fn(self.act)(self.w_gate(x, compute_dtype)) * h
         else:
             h = act_fn(self.act)(h)
+        h = sh.constrain(h, *(["dp"] + [None] * (h.ndim - 2) + ["tp"]))
         return self.w_out(h, compute_dtype)
+
+
+def _sharded_lookup(w, tokens):
+    """``w[tokens]`` for a DTensor table: through ``local_map``, each rank
+    looks its own tokens up in the whole table (gathered where the mesh
+    splits it), and the table's gradient is a pending sum over the mesh
+    dims that split the tokens (replicated over the rest)."""
+    mesh = w.device_mesh
+    tokens = sh.replicate_like(tokens, w)
+    tok_pl = list(tokens.placements)
+    grad_pl = [Partial() if p.is_shard() else Replicate() for p in tok_pl]
+    fn = local_map(lambda w_, t_: w_[t_], out_placements=tok_pl,
+                   in_placements=([Replicate()] * mesh.ndim, tok_pl),
+                   in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(w, tokens)
 
 
 class Embedding(nn.Module):
@@ -108,8 +129,10 @@ class Embedding(nn.Module):
         self.w.normal_(0.0, 1.0, generator=gen).mul_(self.w.shape[1] ** -0.5)
 
     def forward(self, tokens, compute_dtype=None):
-        y = self.w[tokens]
-        return y if compute_dtype is None else y.to(compute_dtype)
+        y = _sharded_lookup(self.w, tokens) if sh.is_sharded(self.w) \
+            else self.w[tokens]
+        return sh.constrain_hidden(y if compute_dtype is None
+                                   else y.to(compute_dtype))
 
     def unembed(self, x, compute_dtype=None):
         """x (..., d) -> logits (..., padded_vocab)."""
@@ -117,4 +140,6 @@ class Embedding(nn.Module):
         if compute_dtype is not None:
             w = w.to(compute_dtype)
             x = x.to(compute_dtype)
-        return x @ w.T
+        logits = x @ w.T
+        return sh.constrain(logits,
+                            *(["dp"] + [None] * (logits.ndim - 2) + ["tp"]))

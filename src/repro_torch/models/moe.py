@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers as L
 
 
@@ -180,8 +181,10 @@ def _experts(p: MoE, xe, act: str):
         h = L.act_fn(act)(torch.bmm(xs, w.w_gate.to(cdt))) * h
     else:
         h = L.act_fn(act)(h)
+    h = sh.constrain(h, "tp", "dp", None)     # (E, G·C, f): gecf's layout
     ye = torch.bmm(h, w.w_out.to(cdt))
-    return ye.view(E, G, C, d).transpose(0, 1)
+    return sh.constrain(ye.view(E, G, C, d).transpose(0, 1),
+                        "dp", "tp", None, None)
 
 
 def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
@@ -196,7 +199,7 @@ def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
     G = min(num_groups, T)
     while T % G:
         G -= 1
-    xg = x.reshape(G, T // G, d)
+    xg = sh.constrain(x.reshape(G, T // G, d), "dp", None, None)
 
     logits = p.router(xg.float())                       # (G, Sg, E) f32
     probs = torch.softmax(logits, dim=-1)
@@ -226,7 +229,7 @@ def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
         disp = dispatch.to(cdt).reshape(G, T // G, E * cap)
         xe = torch.bmm(disp.transpose(1, 2), xg.to(cdt)) \
             .view(G, E, cap, d)                               # gsec,gsd->gecd
-    ye = _experts(p, xe, act)
+    ye = _experts(p, sh.constrain(xe, "dp", "tp", None, None), act)
 
     if mode == "gather":
         ye_flat = torch.cat([ye.reshape(G, E * cap, d),

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers as L
 
 RGLRU_C = 8.0
@@ -160,10 +161,11 @@ class RGLRUBlock(nn.Module):
         (B, dl) f32 and the conv state (B, width - 1, dl) in xb's dtype
         (zero rows before the sequence's start where S < width - 1)."""
         g = F.silu(self.wg(x, compute_dtype))
-        xb = self.wx(x, compute_dtype)
+        xb = sh.constrain(self.wx(x, compute_dtype), "dp", None, "tp")
         n = self.conv.w.shape[0] - 1
         conv_state = F.pad(xb[:, -n:], (0, 0, max(n - xb.shape[1], 0), 0))
         h = rglru_scan(self.lru, conv1d_causal(self.conv.w, xb))
+        h = sh.constrain(h, "dp", None, "tp")
         out = self.w_lru_out(h * g, compute_dtype)
         return out, (h[:, -1].float(), conv_state)
 
@@ -329,7 +331,7 @@ class MLSTMBlock(nn.Module):
     def _out(self, h, z, compute_dtype):
         B, S = z.shape[:2]
         h = self.out_norm(h.reshape(B, S, -1), MLSTM_NORM_EPS) * F.silu(z)
-        return self.w_down(h, compute_dtype)
+        return self.w_down(sh.constrain(h, "dp", None, "tp"), compute_dtype)
 
     def forward(self, x, compute_dtype=None, *, chunk: int = MLSTM_CHUNK):
         """Returns (out, (C, n, m, conv)): the decode state after the
@@ -338,6 +340,7 @@ class MLSTMBlock(nn.Module):
         width - 1).  The gates come from ``w_if`` in the compute dtype,
         their output cast to f32."""
         x_m, z = self.w_up(x, compute_dtype).chunk(2, dim=-1)
+        x_m = sh.constrain(x_m, "dp", None, "tp")
         q, k, v = self._qkv(F.silu(conv1d_causal(self.conv.w, x_m)), x_m,
                             compute_dtype)
         i_raw, f_raw = self.w_if(x_m, compute_dtype).float().chunk(2, dim=-1)
@@ -447,7 +450,7 @@ class SLSTMBlock(nn.Module):
     def forward(self, x, compute_dtype=None):
         """Returns (out, (c, n, h, m)), the state after the sequence."""
         h, state = slstm_cell(self.slstm, x)
-        return self.ff(h, compute_dtype), state
+        return self.ff(sh.constrain_hidden(h), compute_dtype), state
 
     def step(self, x_t, c, n, h, m, compute_dtype=None):
         """One token, x_t (B, 1, d) -> (B, 1, d); c, n, h and m are

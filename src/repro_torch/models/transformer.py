@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base as C
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels import flash_attention_bwd as fkb
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -129,7 +130,7 @@ class Block(nn.Module):
         h = self.ln1(x, cfg.norm_eps)
         if self.kind in _XLSTM:
             y, state = getattr(self, self._mixer())(h, cdt)
-            return x + y, state, None
+            return sh.constrain_hidden(x + y), state, None
         if self.kind == C.RGLRU:
             y, state = self.rec(h, cdt)
         else:
@@ -141,7 +142,7 @@ class Block(nn.Module):
             y, cross = self.xattn(self.ln_x(x, cfg.norm_eps), ctx,
                                   causal=False, compute_dtype=cdt)
             x, state = x + y, state + cross
-        x, aux = self._ffn(x, cfg, cdt)
+        x, aux = self._ffn(sh.constrain_hidden(x), cfg, cdt)
         return x, state, aux
 
     def decode(self, x, state, pos, slots, cfg: C.ModelConfig, cdt, rope):
@@ -151,7 +152,8 @@ class Block(nn.Module):
         slot, slot positions) of an attention layer's cache."""
         h = self.ln1(x, cfg.norm_eps)
         if self.kind in _XLSTM:
-            return x + getattr(self, self._mixer()).step(h, *state, cdt)
+            return sh.constrain_hidden(
+                x + getattr(self, self._mixer()).step(h, *state, cdt))
         if self.kind == C.RGLRU:
             y = self.rec.step(h, *state, cdt)
         else:
@@ -162,7 +164,7 @@ class Block(nn.Module):
         if self.kind == C.CROSS_ATTN:
             x = x + self.xattn.decode_cross(self.ln_x(x, cfg.norm_eps),
                                             *state[2:], compute_dtype=cdt)
-        return self._ffn(x, cfg, cdt)[0]
+        return self._ffn(sh.constrain_hidden(x), cfg, cdt)[0]
 
     def _ffn(self, x, cfg: C.ModelConfig, cdt):
         """(x, aux): the MoE's aux losses, None without MoE."""
@@ -173,7 +175,7 @@ class Block(nn.Module):
             y, aux = self.moe(self.ln2(x, cfg.norm_eps), cfg.moe,
                               cfg.mlp_act, cdt)
             x = x + y
-        return x, aux
+        return sh.constrain_hidden(x), aux
 
 
 def _train_block(blk: Block, x, cfg: C.ModelConfig, cdt, rope, ctx):
@@ -451,8 +453,9 @@ class Transformer(nn.Module):
         zl = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:
             if remat:
-                x, lb_i, zl_i = checkpoint(_train_block, blk, x, cfg, cdt,
-                                           rope, ctx, use_reentrant=False)
+                x, lb_i, zl_i = checkpoint(
+                    _train_block, blk, x, cfg, cdt, rope, ctx,
+                    use_reentrant=False, context_fn=sh.checkpoint_contexts)
             else:
                 x, lb_i, zl_i = _train_block(blk, x, cfg, cdt, rope, ctx)
             lb, zl = lb + lb_i, zl + zl_i

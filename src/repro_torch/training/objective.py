@@ -15,6 +15,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as sh
+
 LB_LOSS_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 _CE_TARGET_ELEMS = 1 << 24  # per-chunk global logits budget (elements)
@@ -24,17 +26,28 @@ def _mask_padded(logits, vocab_size: int):
     """Logits of the padded vocab entries set to -1e30."""
     Vp = logits.shape[-1]
     if Vp > vocab_size:
-        iota = torch.arange(Vp, device=logits.device)
+        iota = sh.replicate_like(torch.arange(Vp, device=logits.device),
+                                 logits)
         logits = torch.where(iota < vocab_size, logits, -1e30)
     return logits
+
+
+def _label_logit(logits, labels):
+    """logits (..., Vp) at each label (...,).  A DTensor's vocab may be
+    sharded: there each rank keeps its own vocab slice's label logit and
+    zeros (a sum over the vocab then adds one value to zeros, exactly)."""
+    if not sh.is_sharded(logits):
+        return torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    iota = sh.replicate_like(
+        torch.arange(logits.shape[-1], device=logits.device), logits)
+    return torch.where(iota == labels[..., None], logits, 0.0).sum(-1)
 
 
 def cross_entropy(logits, labels, vocab_size: int):
     """Naive CE. logits (B, S, Vp); labels (B, S). Mean over tokens, f32."""
     logits = _mask_padded(logits.float(), vocab_size)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return (lse - ll).mean()
+    return (lse - _label_logit(logits, labels)).mean()
 
 
 def _ce_chunk(S: int, batch: int, padded_vocab: int) -> int:
@@ -50,10 +63,10 @@ def _ce_chunk(S: int, batch: int, padded_vocab: int) -> int:
 
 def _chunk_ce(x_c, y_c, w, vocab_size: int, compute_dtype):
     """Sum over one chunk's tokens of lse - the label's logit."""
-    logits = _mask_padded((x_c.to(compute_dtype) @ w.T).float(), vocab_size)
+    logits = sh.constrain(x_c.to(compute_dtype) @ w.T, "dp", None, "tp")
+    logits = _mask_padded(logits.float(), vocab_size)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, y_c[..., None].long())[..., 0]
-    return (lse - ll).sum()
+    return (lse - _label_logit(logits, y_c)).sum()
 
 
 def fused_cross_entropy(hidden, unembed_w, labels, vocab_size: int,
@@ -69,7 +82,8 @@ def fused_cross_entropy(hidden, unembed_w, labels, vocab_size: int,
     for s0 in range(0, S, ch):
         total = total + checkpoint(_chunk_ce, hidden[:, s0:s0 + ch],
                                    labels[:, s0:s0 + ch], w, vocab_size,
-                                   compute_dtype, use_reentrant=False)
+                                   compute_dtype, use_reentrant=False,
+                                   context_fn=sh.checkpoint_contexts)
     return total / (B * S)
 
 

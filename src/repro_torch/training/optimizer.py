@@ -12,6 +12,11 @@ so its norm scales and biases inside the stack decay too:
 (``models.convert.jax_ndim``).  PyTorch tensors are mutable, so
 ``apply_updates`` writes the new parameters and moments into the tensors
 it is given (the JAX package returns new ones; XLA donates the old).
+
+On a mesh the parameters are DTensors: the moments take each parameter's
+placements, the gradient norm is global (each tensor's sum of squares is
+reduced over the mesh) and the update runs on each rank's local shards,
+gradients first laid out as their parameters.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.distributed import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +52,9 @@ def init_opt_state(params: Dict[str, torch.Tensor]) -> OptState:
     """Step 0 and zero f32 moments shaped like each parameter, on its
     device."""
     dev = next(iter(params.values())).device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32) \
+        if sh.is_sharded(p) else \
+        torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m={k: zeros(p) for k, p in params.items()},
                     v={k: zeros(p) for k, p in params.items()})
@@ -64,8 +72,9 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum over ``tensors`` of their f32 sums of squares."""
-    return torch.sqrt(torch.stack([torch.sum(torch.square(x.float()))
+    """sqrt of the sum over ``tensors`` of their f32 sums of squares (a
+    DTensor's over its whole value)."""
+    return torch.sqrt(torch.stack([sh.full(torch.sum(torch.square(x.float())))
                                    for x in tensors]).sum())
 
 
@@ -89,14 +98,14 @@ def apply_updates(params: Dict[str, torch.Tensor],
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for name, p in params.items():
-        g = grads[name].float()
-        m, v = state.m[name], state.v[name]
+    for name, p_ in params.items():
+        p, g = sh.local(p_), sh.local(grads[name]).float()
+        m, v = sh.local(state.m[name]), sh.local(state.v[name])
         pf = p.float()
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * torch.square(g))
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if (p.dim() >= 2) if decay is None else decay[name]:
+        if (p_.dim() >= 2) if decay is None else decay[name]:
             delta = delta + cfg.weight_decay * pf
         p.copy_((pf - lr * delta).to(p.dtype))
     metrics = {"grad_norm": gnorm, "lr": lr}

@@ -6,6 +6,10 @@ own parameter tensors (``trainable_params``), so the model computes with
 the values the optimizer writes in place; it returns (params, opt_state,
 metrics) as the JAX step does, and metrics holds the reference's keys:
 loss, ce, lb_loss, z_loss, grad_norm and lr, each an f32 scalar tensor.
+
+On a mesh (``distributed.sharding``) the parameters are DTensors; each
+gradient is laid out as its parameter (a pending sum is reduced and
+scattered there) and the metrics are whole values on every rank.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import convert
 from repro_torch.training import objective
 from repro_torch.training import optimizer as opt
@@ -51,11 +56,14 @@ def build_train_step(model, adamw: opt.AdamWConfig, *,
         if mark is not None:
             mark("forward")
         grads = torch.autograd.grad(loss, list(params.values()))
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if sh.is_sharded(p) else g
+                 for p, g in zip(params.values(), grads)]
         if mark is not None:
             mark("backward")
         metrics["loss"] = loss
         return (dict(zip(params, grads)),
-                {k: metrics[k].detach() for k in METRIC_KEYS})
+                {k: sh.full(metrics[k].detach()) for k in METRIC_KEYS})
 
     def accumulate(params, batch):
         if num_microbatches == 1:
@@ -65,7 +73,9 @@ def build_train_step(model, adamw: opt.AdamWConfig, *,
             raise ValueError(f"batch {B} does not split into "
                              f"{num_microbatches} microbatches")
         mb = B // num_microbatches
-        g_acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        g_acc = {k: torch.zeros_like(p, dtype=torch.float32)
+                 if sh.is_sharded(p) else
+                 torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for k, p in params.items()}
         m_acc = {k: torch.zeros((), dtype=torch.float32,
                                 device=batch["tokens"].device)
