@@ -70,7 +70,13 @@ distributed path: the same launcher on a ``DeviceMesh`` under torchrun
 losses held against the training path's, and two gloo ranks sharing the
 card, ``compressed_psum`` over them on the card held against the host's,
 bit for bit (gloo cannot carry DTensor's collectives on CUDA tensors in
-this torch, so no two-rank training runs on one card).  Every
+this torch, so no two-rank training runs on one card).  Then the
+dry-run path: ``launch/dryrun.py`` in host processes, counting the
+training step on meta tensors (unsharded and on a fake 1x1 mesh, both
+dtypes) and held against the training path's measured step (flash calls
+against launches, argument bytes against the live state and batch, its
+roofline bound at or below the step), and the reference's ``train_4k``,
+``prefill_32k`` and ``decode_32k`` cells on a fake (32, 8) mesh.  Every
 phase prints one JSON line; the full
 record (and the calibrated store) goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
@@ -131,6 +137,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as fkb  # noqa: E402
 from repro_torch.kernels import matmul as mk  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import plan as plan_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -428,6 +435,15 @@ DIST_ONE_STEPS = 3          # one NCCL rank, each dtype
 DIST_PSUM_RANKS = 2         # gloo ranks sharing the card: the codec only
 DIST_RTOL = 2e-4
 DIST_TIMEOUT = 300
+# The dry-run path (``phase_dryrun``): ``launch/dryrun.py`` on the host, in
+# processes of its own (the fake process group is process-wide), (a) at
+# the training path's shape, unsharded and on a fake 1x1 mesh, held
+# against phase ``train``'s step, (b) at the production cells on the fake
+# (32, 8) mesh.  Each train-shape mesh is a process of its own: "none"
+# runs as ``--device-mesh none``, the others as ``--mesh``.
+DRYRUN_MESHES = ("none", "1x1")
+DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_TIMEOUT = 300
 
 
 def emit(phase: str, **fields):
@@ -4176,6 +4192,124 @@ def phase_dist(train):
             "seconds": time.perf_counter() - t0}
 
 
+def phase_dryrun(train):
+    """The dry run (``launch/dryrun.py``), which counts a step on meta
+    tensors and launches nothing, in host processes started together:
+    (a) MODEL at the training path's shape in float32 and bf16, unsharded
+    and on a fake 1x1 mesh, each cell held against phase ``train``'s step
+    on the card: its flash forward and backward calls equal the launches
+    the wrappers counted in one step, its argument bytes equal the live
+    parameters', AdamW state's and batch's, and its roofline bound
+    (``roofline_terms`` on the card's datasheet, in the cell's dtype) is at
+    or below the measured median step (the ratio is reported); (b) MODEL
+    at DRYRUN_CELLS on the fake (32, 8) mesh, every row ``ok``.  The
+    wrappers' launches are counted in the dry-run processes, each cell's
+    from where it starts, and summed (``launches``): all must be 0.  Fails
+    on any check."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cell = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--compute-dtype", *DTYPES]
+    runs = {f"train_shape_{m}": cell + (["--device-mesh", "none"]
+                                        if m == "none" else ["--mesh", m])
+            for m in DRYRUN_MESHES}
+    runs["production"] = ["--shape", *DRYRUN_CELLS]
+    procs = {}
+    try:
+        for tag, args in runs.items():
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", MODEL, *args, "--json",
+                   str(OUT / f"dryrun_{tag}.json")]
+            log = open(OUT / f"dryrun_{tag}.log", "w")
+            procs[tag] = (subprocess.Popen(cmd, stdout=log,
+                                           stderr=subprocess.STDOUT, env=env,
+                                           cwd=ROOT), log)
+        reports, seconds = {}, {}
+        for tag, (proc, log) in procs.items():
+            code = proc.wait(timeout=max(
+                DRYRUN_TIMEOUT - (time.perf_counter() - t0), 1))
+            seconds[tag] = time.perf_counter() - t0
+            if code:
+                raise AssertionError(
+                    f"dryrun {tag}: exit {code}\n"
+                    f"{(OUT / f'dryrun_{tag}.log').read_text()[-3000:]}")
+            reports[tag] = json.loads((OUT / f"dryrun_{tag}.json").read_text())
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    launches = {"matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0}
+    for r in (r for reps in reports.values() for r in reps):
+        for k, n in r["launches"].items():
+            launches[k] += n
+    rows = [dryrun_check(r, train) for m in DRYRUN_MESHES
+            for r in reports[f"train_shape_{m}"]]
+    for row in rows:
+        emit("dryrun", **row)
+    prod = []
+    for r in reports["production"]:
+        row = {k: r[k] for k in ("arch", "shape", "mesh", "ok", "error",
+                                 "compile_s", "flops_per_device",
+                                 "bytes_per_device", "collectives",
+                                 "ici_bytes", "memory",
+                                 "kernel_calls_per_device")}
+        if r["ok"]:
+            row["roofline"] = dryrun_mod.roofline_terms(
+                dryrun_mod.CellReport(**r), H100_SXM)
+        emit("dryrun_production", **row)
+        prod.append(row)
+    out = {"train_shape": rows, "production": prod,
+           "launches": launches, "seconds_until_done": seconds,
+           "seconds": time.perf_counter() - t0}
+    emit("dryrun", seconds_until_done=seconds, seconds=out["seconds"])
+    bad = [r["checks"] for r in rows if not all(r["checks"].values())]
+    failed = [r["shape"] for r in prod if not r["ok"]]
+    if bad or failed or len(rows) != 2 * len(DRYRUN_MESHES) \
+            or len(prod) != len(DRYRUN_CELLS):
+        raise AssertionError(f"dryrun: checks {bad}, production rows not ok "
+                             f"{failed}")
+    here = hand_launches()
+    if any(here.values()):
+        raise AssertionError(f"phase dryrun launched in the parent: {here}")
+    return out
+
+
+def dryrun_check(rep, train):
+    """One train-shape dry-run cell against phase ``train``'s step in the
+    cell's dtype: the row and its checks."""
+    dname = rep["options"]["compute_dtype"]
+    step = train[dname]["step"]
+    live = sum(step["live_bytes"].values())
+    launched = {k: step["launches_per_step"].get(k, 0)
+                for k in ("flash_attention", "flash_attention_bwd")}
+    measured_s = step["step_ms"] / 1e3
+    row = {"mesh": rep["mesh"], "dtype": dname, "ok": rep["ok"],
+           "error": rep["error"], "compile_s": rep["compile_s"],
+           "kernel_calls": rep["kernel_calls_per_device"],
+           "launches_per_step": launched,
+           "argument_bytes": rep["memory"].get("argument_size_in_bytes"),
+           "live_bytes": live, "flops_per_device": rep["flops_per_device"],
+           "bytes_per_device": rep["bytes_per_device"],
+           "jaxpr_flops_global": rep["jaxpr_flops_global"],
+           "measured_step_s": measured_s}
+    checks = {"ok": rep["ok"]}
+    if rep["ok"]:
+        terms = dryrun_mod.roofline_terms(dryrun_mod.CellReport(**rep),
+                                          H100_SXM, dname)
+        row.update(terms, bound_over_measured=terms["step_s_lower_bound"]
+                   / measured_s)
+        checks.update(
+            flash_calls_equal_launches=launched == {
+                k: rep["kernel_calls_per_device"].get(k, 0)
+                for k in launched},
+            argument_bytes_exact=row["argument_bytes"] == live,
+            bound_at_or_below_step=terms["step_s_lower_bound"] <= measured_s)
+    row["checks"] = checks
+    return row
+
+
 def dist_launch(nproc, args, tag):
     """torchrun of ``scripts/torch_dist_train.py`` with ``args`` (with a
     ``--ckpt-dir`` of its own after a launcher's): each rank's record."""
@@ -4290,7 +4424,9 @@ def train_step_times(cfg):
     after TRAIN_WARM, with its hand-kernel launches; the same steps split
     into forward, backward and optimizer by events that the step's
     ``mark`` hook records at its part boundaries, each part's median, and
-    the backward / forward ratio."""
+    the backward / forward ratio; the bytes of the live parameters, AdamW
+    state and batch (``live_bytes``, which phase ``dryrun`` holds its
+    argument bytes against)."""
     model, params, adamw, data = train_model(cfg)
     events = {}
 
@@ -4300,6 +4436,11 @@ def train_step_times(cfg):
 
     step = tstep.build_train_step(model, adamw, remat=True, mark=mark)
     state = topt.init_opt_state(params)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    live = {"params": nbytes(params.values()),
+            "moments": nbytes(list(state.m.values()) + list(state.v.values())
+                              + [state.step]),
+            "batch": nbytes(data.batch_at(0).values())}
     parts = {"forward": [], "backward": [], "optimizer": []}
     whole, launches = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -4324,6 +4465,7 @@ def train_step_times(cfg):
            "parts_ms_all": parts,
            "bwd_fwd_ratio": med["backward"] / med["forward"],
            "launches_per_step": launches, "remat": True,
+           "live_bytes": live,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "final_loss": float(m["loss"])}
     del model, params, state, step
@@ -4964,7 +5106,13 @@ def main() -> int:
     reset_launches()
     dist = phase_dist(train)
     by_path["dist"] = dist["launches"]
+    reset_launches()
+    dry = phase_dryrun(train)
+    by_path["dryrun"] = dry["launches"]
     emit("path_launches", **by_path)
+    if any(by_path["dryrun"].values()):
+        raise AssertionError(f"the dryrun path launched a hand kernel: "
+                             f"{by_path['dryrun']}")
     for path in ("train", "dist"):
         for name in ("flash_attention", "flash_attention_bwd"):
             if by_path[path][name] == 0:
@@ -4994,7 +5142,7 @@ def main() -> int:
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
                   encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
-                  train=train, dist=dist,
+                  train=train, dist=dist, dryrun=dry,
                   kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)

@@ -254,12 +254,18 @@ def calibrate_device(path: Optional[str] = None, *, device="cuda",
     return store
 
 
-def default_store_path(device="cuda") -> str:
+def artifacts_dir() -> str:
+    """The port's artifacts: ``artifacts/torch/`` of the checkout, or
+    ``$REPRO_ARTIFACTS/torch``."""
     root = os.environ.get("REPRO_ARTIFACTS",
                           os.path.join(os.path.dirname(__file__), "..", "..",
                                        "..", "artifacts"))
-    return os.path.abspath(os.path.join(
-        root, "torch", f"calibration_{device_name(device)}.json"))
+    return os.path.abspath(os.path.join(root, "torch"))
+
+
+def default_store_path(device="cuda") -> str:
+    return os.path.join(artifacts_dir(),
+                        f"calibration_{device_name(device)}.json")
 
 
 def load_or_calibrate(path: Optional[str] = None, *, device="cuda",

@@ -77,6 +77,12 @@ def op_cost(func, args, kwargs, out) -> Cost:
         return Cost()
     outs = _tensors(out)
     io = sum(_nbytes(t) for t in _tensors((args, kwargs)) + outs)
+    return priced(name, args, outs, io)
+
+
+def priced(name: str, args, outs, io: float) -> Cost:
+    """``op_cost`` of op ``name`` (not a view) from its arguments, its
+    output tensors and its operand + output bytes ``io``."""
     out_elems = float(sum(t.numel() for t in outs))
     if name in _MATMUL:
         return Cost(_dot_flops(name, args), io, 0.0)

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import priced
 
 NEG_INF = -1e30
 
@@ -218,6 +219,17 @@ def library_blocks_per_sm(config: FlashConfig, hd: int) -> int:
     return fn(config.bq, config.bk, hd)
 
 
+def visited_work(config: FlashConfig, B: int, H: int, Sq: int, Skv: int,
+                 hd: int):
+    """(flops, exponentials) of one launch: every (bq, bk) tile of every
+    (batch, head), whatever the mask (``csrc/flash_attention.cu`` visits
+    every KV tile), each tile two products of 2·bq·bk·hd (S = Q Kᵀ and
+    P V) and bq·bk exponentials; ragged tails count as whole tiles."""
+    tiles = B * H * -(-Sq // config.bq) * -(-Skv // config.bk)
+    return (tiles * 4.0 * config.bq * config.bk * hd,
+            tiles * float(config.bq * config.bk))
+
+
 def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
                            window: Optional[int] = None, q_offset: int = 0,
                            return_lse: bool = False):
@@ -226,9 +238,10 @@ def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
     Hkv (GQA read in place).  Any Sq, Skv: the kernel masks ragged tails.
     With ``return_lse`` (the backward's residual; 4-d tensors only), (o,
     lse) with lse (B, H, Sq) f32.  CUDA tensors launch the hand-written
-    kernel (and count the launch); CPU tensors take the plain version.  It
-    has no autograd of its own: ``kernels.ops.flash_attention`` is the
-    differentiable entry."""
+    kernel (and count the launch); CPU tensors take the plain version;
+    meta tensors make meta outputs and report the call (``kernels.priced``);
+    any other device raises.  It has no autograd of its own:
+    ``kernels.ops.flash_attention`` is the differentiable entry."""
     three_d = q.dim() == 3
     if three_d:
         q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
@@ -257,10 +270,32 @@ def flash_attention_kernel(q, k, v, config: FlashConfig, *, causal=True,
                                     window=window, q_offset=q_offset,
                                     return_lse=return_lse)
         return out[:, :, 0] if three_d else out
-    o, lse = _launch(q, k, v, config, causal, window, q_offset, return_lse)
+    if priced.all_meta((q, k, v)):
+        o, lse = _priced(q, k, v, config, return_lse)
+    else:
+        o, lse = _launch(q, k, v, config, causal, window, q_offset,
+                         return_lse)
     if three_d:
         return o[:, :, 0]
     return (o, lse) if return_lse else o
+
+
+def _no_autograd(q, k, v):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention_kernel has no autograd; take "
+                           "gradients through kernels.ops.flash_attention")
+
+
+def _priced(q, k, v, config, return_lse):
+    """``_launch`` on meta tensors: (o, lse) on meta, the call reported."""
+    _no_autograd(q, k, v)
+    B, Sq, H, hd = q.shape
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device="meta")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="meta") \
+        if return_lse else None
+    flops, exps = visited_work(config, B, H, Sq, k.shape[1], hd)
+    priced.report("flash_attention", flops, exps, (q, k, v), (o, lse))
+    return o, lse
 
 
 def _launch(q, k, v, config, causal, window, q_offset, return_lse):
@@ -269,9 +304,7 @@ def _launch(q, k, v, config, causal, window, q_offset, return_lse):
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError(f"flash_attention_kernel: tensors on {q.device}, "
                          f"{k.device}, {v.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention_kernel has no autograd; take "
-                           "gradients through kernels.ops.flash_attention")
+    _no_autograd(q, k, v)
     q, k, v, path = _operands(q, k, v)
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import priced
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -67,6 +68,24 @@ def tile_range(t: int, axis: str, Sq: int, Skv: int, *, causal=True,
             if lo < n and min(lo * TILE + TILE, Skv) - 1 < first:
                 lo = n
     return lo, max(lo, hi)
+
+
+def visited_work(B: int, H: int, Sq: int, Skv: int, hd: int, *, causal=True,
+                 window: Optional[int] = None, q_offset: int = 0):
+    """(flops, exponentials) of one call: the (64-row, 64-key) tiles the
+    two tile kernels visit (``tile_range``) for each (batch, query head),
+    four products of 2·64·64·hd a tile in the dK/dV kernel (Sᵀ, dPᵀ, dV,
+    dK) and three in the dQ kernel (S, dP, dQ), and 64·64 exponentials a
+    tile in each; ragged tails count as whole tiles.  The prep and sum
+    passes do no product and are left out."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    span = lambda t, axis: (lambda lo, hi: hi - lo)(
+        *tile_range(t, axis, Sq, Skv, **kw))
+    dkdv = sum(span(t, "q") for t in range(-(-Skv // TILE)))
+    dq = sum(span(t, "kv") for t in range(-(-Sq // TILE)))
+    tile = float(TILE * TILE)
+    return (B * H * tile * hd * (8.0 * dkdv + 6.0 * dq),
+            B * H * tile * (dkdv + dq))
 
 
 def smem_bytes(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
@@ -179,7 +198,9 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal=True,
     at (q, k, v) with its output o and lse (``return_lse``) and the
     output's gradient do.  q, o, do (B, Sq, H, hd); k, v (B, Skv, Hkv, hd);
     lse (B, H, Sq) f32.  CUDA tensors launch the hand-written kernels (and
-    count the launch); CPU tensors take the plain version."""
+    count the launch); CPU tensors take the plain version; meta tensors
+    make meta gradients and report the call (``kernels.priced``); any other
+    device raises."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd_kernel: bad shapes q "
@@ -203,6 +224,13 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal=True,
     if all(t.is_cpu for t in tensors):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          window=window, q_offset=q_offset)
+    if priced.all_meta(tensors):
+        grads = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                      for t in (q, k, v))
+        priced.report("flash_attention_bwd", *visited_work(
+            B, H, Sq, Skv, hd, causal=causal, window=window,
+            q_offset=q_offset), tensors, grads)
+        return grads
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"flash_attention_bwd_kernel: tensors on "
                          f"{[str(t.device) for t in tensors]}")

@@ -281,7 +281,22 @@ def seed_kv_cache(k, v, W: int):
     """k, v (B, S, Hkv, hd) post-RoPE -> head-major (k, v) caches of W
     slots, (B, Hkv, W, hd), holding the last min(W, S) positions, each at
     slot position mod W, zeros elsewhere: a full cache (W >= S, the prompt
-    at slots 0..S-1) or a ring (the JAX package's ``_seed_cache``)."""
+    at slots 0..S-1) or a ring (the JAX package's ``_seed_cache``).
+
+    DTensor k and v (a prefill on a mesh) are seeded on each rank's own
+    batch and KV heads through ``local_map``, laid out as at the flash
+    kernel's boundary (``ops.attention_placements``), the caches as the
+    decode step reads them."""
+    if sh.is_sharded(k):
+        mesh = k.device_mesh
+        B, Hkv = k.shape[0], k.shape[2]
+        pl_in = ops.attention_placements(mesh, B, Hkv, Hkv)
+        pl_out = ops.attention_placements(mesh, B, Hkv, Hkv, heads_at=1)
+        fn = local_map(lambda k_, v_: seed_kv_cache(k_, v_, W),
+                       out_placements=(pl_out, pl_out),
+                       in_placements=(pl_in, pl_in), device_mesh=mesh,
+                       redistribute_inputs=True)
+        return fn(k, v)
     B, S, Hkv, hd = k.shape
     n = min(W, S)
     slots = torch.arange(S - n, S, device=k.device) % W

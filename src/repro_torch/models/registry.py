@@ -11,7 +11,10 @@ order and, with ``dtype``, stored in it as ``cast_weights_`` stores it
 before the next part is made, so that only one part is ever held in f32:
 moonshot-v1-16b-a3b is 115.6 GB in f32 and 57.8 GB in bf16, so it is
 built on one 80 GB card only this way.  The weights equal, bit for bit,
-those of a model made on ``device``, drawn by ``reset`` and cast."""
+those of a model made on ``device``, drawn by ``reset`` and cast.
+
+``device="meta"`` makes every part on ``meta`` (shapes and dtypes, no
+data) and draws nothing: the dry run's model (``launch/dryrun.py``)."""
 from __future__ import annotations
 
 import torch
@@ -29,8 +32,10 @@ def build(cfg_or_name, *, device="cuda", seed: int = 0,
     if not isinstance(cfg, C.ModelConfig):
         raise TypeError(f"build: expected a ModelConfig or its name, got {cfg!r}")
     dev = resolve(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     model = Transformer(cfg, device=torch.device("meta"))
+    if dev.type == "meta":
+        return model if dtype is None else cast_weights_(model, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     for owner, name, make in model.parts():
         part = make(dev)
         part.reset(gen)

@@ -275,6 +275,41 @@ def decode(arch, n_layers, mesh, steps=4, batch=8, prompt=16, capacity=32):
             "pos": int(cache.pos)}
 
 
+def prefill(arch, n_layers, mesh, batch=8, prompt=16, capacity=32):
+    """Reduced ``arch`` (float32, seed 0): a prefill with the weights under
+    ``params_specs(serve=True)`` and the tokens under ``batch_spec`` on
+    ``mesh``, against the same prefill on one device; the largest error of
+    the logits and of every layer's k and v caches, each relative to its
+    largest value, and the caches' placements."""
+    import torch
+    from repro_torch.configs import registry as cr
+    from repro_torch.distributed import sharding as sh, specs as sp
+    from repro_torch.models import registry as mr
+    cfg = dataclasses.replace(cr.reduced(arch, n_layers=n_layers),
+                              compute_dtype="float32")
+    model = mr.build(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen)
+    m = _mesh(mesh)
+    with torch.no_grad():
+        want, want_cache = model.prefill(toks, max_len=capacity)
+        with sh.mesh_context(m):
+            sh.distribute_module_(model, sp.params_specs(model, serve=True),
+                                  m)
+            got, cache = model.prefill(
+                sh.distribute(toks, sp.batch_spec((batch, prompt))),
+                max_len=capacity)
+            pairs = [(sh.full(got), want)] + [
+                (sh.full(g), w) for field in ("k", "v")
+                for g, w in zip(getattr(cache, field),
+                                getattr(want_cache, field))]
+    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in pairs]
+    return {"logits_err": errs[0], "cache_err": max(errs[1:]),
+            "n_caches": len(errs) - 1,
+            "cache_placements": [str(p) for p in cache.k[0].placements],
+            "pos": int(cache.pos)}
+
+
 def _main():
     import torch.distributed as dist
     fn, args, prefix = sys.argv[1:4]

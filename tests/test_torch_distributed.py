@@ -416,6 +416,25 @@ def test_elastic_reshard_2x2_onto_three_healthy_ranks(tmp_path):
         assert r["placements"]["blocks.0.attn.wq.w"] == ["S(0)", "S(1)"]
 
 
+@pytest.mark.parametrize("arch,cache_pl", [
+    ("qwen2-0.5b", ["S(0)", "S(1)"]),            # batch, kv heads (2 / 2)
+    ("yi-6b", ["S(0)", "S(1)"])])                # batch, kv heads (4 / 2)
+def test_sharded_prefill_matches_one_process(tmp_path, arch, cache_pl):
+    """Reduced ``arch`` (2 layers, float32): a prefill of 16 tokens with
+    serving specs on a 2x2 mesh of 4 gloo processes, the caches seeded on
+    each rank's batch and KV heads (``attention.seed_kv_cache`` on
+    DTensors); gathered logits and k, v caches within ``DECODE_TOL`` of
+    one process's."""
+    res = td.spawn(4, "prefill", tmp_path, arch=arch, n_layers=2,
+                   mesh=[2, 2])
+    for r in res:
+        assert r["logits_err"] < DECODE_TOL, res
+        assert r["cache_err"] < DECODE_TOL, res
+        assert r["n_caches"] == 2 * 2
+        assert r["cache_placements"] == cache_pl
+        assert r["pos"] == 16
+
+
 @pytest.mark.parametrize("arch,mesh,cache_pl", [
     ("yi-6b", (2, 2), ["S(0)", "S(1)"]),         # batch, kv heads (4 / 2)
     ("qwen2-0.5b", (1, 4), ["S(0)", "S(2)"])])   # 2 kv heads: the sequence

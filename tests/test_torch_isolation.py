@@ -63,3 +63,36 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              text=True, cwd=script.parent, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+DRY_RUN_MODULES = ("core/jaxpr_cost.py", "core/hlo.py", "launch/dryrun.py",
+                   "benchmarks/roofline.py", "kernels/priced.py")
+
+
+@pytest.mark.parametrize("rel", DRY_RUN_MODULES)
+def test_dry_run_modules_stand_alone(rel):
+    """The dry run's modules exist and import neither jax nor the JAX
+    package."""
+    path = PORT / rel
+    assert path.exists(), rel
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    """The fake mesh's process group is made only when a cell runs on it:
+    importing the dry run, the roofline benchmark and the mesh module leaves
+    torch.distributed uninitialized (and jax and the JAX package
+    unimported)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.benchmarks.roofline\n"
+        "import repro_torch.launch.mesh\n"
+        "print(dist.is_initialized())\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
