@@ -56,7 +56,11 @@ path: the JAX package's paper tables on the card (``repro_torch.benchmarks``):
 NeuSight trained per dtype, Table II, Table IV over the reference's six
 models and qwen2-0.5b and yi-6b at full width, Fig. 3, the partition
 application and the planner CLI, pricing the same measured work with
-PM2Lat, NeuSight and the FLOPs/bytes proxy.  Then the training path:
+PM2Lat, NeuSight and the FLOPs/bytes proxy.  Then the drivers path: the
+paper's other drivers (``repro_torch.benchmarks``: NAS speed, the fleet,
+strategy, serving, parallel and overlap sweeps, comm validation) on the
+card's store at their ``--fast`` and ``--dry-run`` sizes, each with its
+own self-checks.  Then the training path:
 qwen2-0.5b at full width trained through ``launch/train.py`` (float32
 weights and AdamW moments, float32 and bf16 compute, attention's backward
 through the hand flash backward kernel) with its step-0 checkpoint, the
@@ -70,15 +74,22 @@ distributed path: the same launcher on a ``DeviceMesh`` under torchrun
 losses held against the training path's, and two gloo ranks sharing the
 card, ``compressed_psum`` over them on the card held against the host's,
 bit for bit (gloo cannot carry DTensor's collectives on CUDA tensors in
-this torch, so no two-rank training runs on one card).  Then the
-dry-run path: ``launch/dryrun.py`` in host processes, counting the
-training step on meta tensors (unsharded and on a fake 1x1 mesh, both
-dtypes) and held against the training path's measured step (flash calls
-against launches, argument bytes against the live state and batch, its
-roofline bound at or below the step), and the reference's ``train_4k``,
-``prefill_32k`` and ``decode_32k`` cells on a fake (32, 8) mesh.  Every
-phase prints one JSON line; the full
-record (and the calibrated store) goes to ``chiprun_out/``.  The
+this torch, so no two-rank training runs on one card), and one NCCL rank
+a model serving moonshot-v1-16b-a3b (bf16, 4 layers at full width) and
+whisper-small (float32) through the sharded path at ``--mesh 1x1``
+(``scripts/torch_dist_serve.py``), its logits held against the model
+without a mesh.  Then the dry-run path: ``launch/dryrun.py`` in host
+processes, counting the training step on meta tensors (unsharded and on a
+fake 1x1 mesh, both dtypes) and held against the training path's measured
+step (flash calls against launches, argument bytes against the live state
+and batch, its roofline bound at or below the step), the reference's
+``train_4k``, ``prefill_32k`` and ``decode_32k`` cells on a fake (32, 8)
+mesh, and the MoE, encoder–decoder and xLSTM kinds' ``decode_32k`` there.
+Table VI (phase ``table6``, on the main path) runs through its driver, on
+the JAX package's shapes and on wider ones.
+Every phase prints one JSON line, also appended to
+``chiprun_out/phases.jsonl``; the full record (and the calibrated store)
+goes to ``chiprun_out/``.  The
 comm-calibration artifact is this run's own
 (``chiprun_out/comm_calibration.json``, deleted at the start).
 
@@ -88,6 +99,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX packa
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -107,10 +119,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.benchmarks import comm_validation  # noqa: E402
 from repro_torch.benchmarks import fig3_throughput_vs_k as fig3  # noqa: E402
+from repro_torch.benchmarks import fleet_compare  # noqa: E402
+from repro_torch.benchmarks import nas_speed  # noqa: E402
+from repro_torch.benchmarks import overlap_scaling  # noqa: E402
+from repro_torch.benchmarks import parallel_scaling  # noqa: E402
 from repro_torch.benchmarks import partition_app  # noqa: E402
+from repro_torch.benchmarks import serving_sweep  # noqa: E402
+from repro_torch.benchmarks import strategy_sweep  # noqa: E402
 from repro_torch.benchmarks import table2_per_layer as table2  # noqa: E402
 from repro_torch.benchmarks import table4_model_wise as table4  # noqa: E402
+from repro_torch.benchmarks import table6_custom_kernels as table6_driver  # noqa: E402
 from repro_torch.configs import base as C  # noqa: E402
 from repro_torch.configs import registry as cfg_registry  # noqa: E402
 from repro_torch.core import calibrate as cal  # noqa: E402
@@ -435,6 +455,17 @@ DIST_ONE_STEPS = 3          # one NCCL rank, each dtype
 DIST_PSUM_RANKS = 2         # gloo ranks sharing the card: the codec only
 DIST_RTOL = 2e-4
 DIST_TIMEOUT = 300
+# (c) sharded serving (``scripts/torch_dist_serve.py``): one NCCL rank at
+# --mesh 1x1 serving each model through the DTensor path (the flash kernel
+# on the rank's heads through ``local_map``, an MoE's routing and experts
+# on the rank's groups and experts) against the same model without a
+# mesh: a prefill of DIST_SERVE_PROMPT tokens a row and DIST_SERVE_STEPS
+# decode steps, logits at DECODE_TOL.  (arch, depth or None for the
+# config's, dtype, the head dim every flash launch must have)
+DIST_SERVE_SCRIPT = ROOT / "scripts" / "torch_dist_serve.py"
+DIST_SERVE = (("moonshot-v1-16b-a3b", 4, "bfloat16", 128),
+              ("whisper-small", None, "float32", 64))
+DIST_SERVE_BATCH, DIST_SERVE_PROMPT, DIST_SERVE_STEPS = 8, 64, 8
 # The dry-run path (``phase_dryrun``): ``launch/dryrun.py`` on the host, in
 # processes of its own (the fake process group is process-wide), (a) at
 # the training path's shape, unsharded and on a fake 1x1 mesh, held
@@ -443,11 +474,20 @@ DIST_TIMEOUT = 300
 # runs as ``--device-mesh none``, the others as ``--mesh``.
 DRYRUN_MESHES = ("none", "1x1")
 DRYRUN_CELLS = ("train_4k", "prefill_32k", "decode_32k")
+# (c) the MoE, encoder-decoder and xLSTM kinds' decode cells on the same
+# mesh, each a process of its own beside the others
+DRYRUN_KINDS = ("moonshot-v1-16b-a3b", "whisper-small", "xlstm-1.3b")
+DRYRUN_KIND_CELL = "decode_32k"
 DRYRUN_TIMEOUT = 300
 
 
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line on stdout, and appended to ``chiprun_out/phases.jsonl``
+    (the tool keeps only the end of stdout)."""
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    with open(OUT / "phases.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi() -> str:
@@ -1077,64 +1117,29 @@ def phase_calibrate():
 
 
 def phase_table6(store):
-    """Sampled unseen shapes: the oracle's pick among the hand kernels, the
-    measured fastest, and every config's prediction error."""
-    dev = store.meta["device"]
-    oracle = PM2Lat(store, dev).oracle
-    rng = np.random.default_rng(0)
-    out = {"mm": [], "fa": []}
-    for dname in ("float32", "bfloat16"):
-        dt = getattr(torch, dname)
-        for _ in range(TABLE6_SAMPLES):
-            m = 128 * int(rng.integers(1, 9))
-            n = 128 * int(rng.integers(1, 9))
-            k = 128 * int(rng.integers(1, 17))
-            a = torch.ones((m, k), dtype=dt, device="cuda")
-            b = torch.ones((k, n), dtype=dt, device="cuda")
-            pick = oracle.select_matmul("matmul", dname, m, n,
-                                        provider=PROVIDER_PALLAS).key.kernel
-            meas, err = {}, {}
-            for cfg in mk.CONFIGS:
-                meas[cfg.name] = profiler.measure(
-                    lambda a, b, cfg=cfg: mk.matmul_kernel(a, b, cfg), a, b)
-                t = oracle.lookup("matmul", cfg.name, dname)
-                pred = t.predict(m, n, k, tile=(cfg.bm, cfg.bn))
-                err[cfg.name] = abs(pred - meas[cfg.name]) / meas[cfg.name]
-            out["mm"].append({"dtype": dname, "shape": [m, n, k], "pick": pick,
-                              "fastest": min(meas, key=meas.get),
-                              "ms": {c: s * 1e3 for c, s in meas.items()},
-                              "rel_err": err})
-        for _ in range(TABLE6_SAMPLES):
-            bh = int(rng.integers(2, 17))
-            s = 128 * int(rng.integers(1, 9))
-            hd = 64
-            q = torch.ones((bh, s, hd), dtype=dt, device="cuda")
-            pick = oracle.select_attention(dname, s, head_dim=hd,
-                                           provider=PROVIDER_PALLAS).key.kernel
-            flops = 4.0 * bh * s * s * hd
-            meas, err = {}, {}
-            for cfg in fk.CONFIGS:
-                meas[cfg.name] = profiler.measure(
-                    lambda q, k, v, cfg=cfg: fk.flash_attention_kernel(
-                        q, k, v, cfg, causal=True), q, q, q)
-                t = oracle.lookup("attention", cfg.name, dname)
-                pred = flops / t.interpolate_throughput(s)
-                err[cfg.name] = abs(pred - meas[cfg.name]) / meas[cfg.name]
-            out["fa"].append({"dtype": dname, "bh": bh, "s": s, "hd": hd,
-                              "pick": pick,
-                              "fastest": min(meas, key=meas.get),
-                              "ms": {c: x * 1e3 for c, x in meas.items()},
-                              "rel_err": err})
-    summary = {}
-    for fam, rows in out.items():
-        summary[fam] = {
-            "oracle_pick_err_pct": 100 * float(np.mean(
-                [r["rel_err"][r["pick"]] for r in rows])),
-            "all_configs_err_pct": 100 * float(np.mean(
-                [e for r in rows for e in r["rel_err"].values()])),
-            "oracle_picked_fastest_pct": 100 * float(np.mean(
-                [r["pick"] == r["fastest"] for r in rows]))}
-    emit("table6", summary=summary, samples=out)
+    """Table VI through its driver (``benchmarks/table6_custom_kernels.py``),
+    on each of its draws (the JAX package's sampled shapes, whose calls are
+    launch-bound on the card, and wider ones), in both dtypes: the oracle's
+    pick among the hand kernels' tables, every hand config measured, and
+    each config's prediction error; cuBLAS batched products through the
+    oracle's nearest grid.  Each draw is reported on a line of its own
+    (``table6``, ``table6_wide``).  Fails on a time that is not positive or
+    an error that is not finite."""
+    out = {}
+    for draws, name in (("reference", "table6"), ("wide", "table6_wide")):
+        rec = out[draws] = table6_driver.run(
+            store, samples=TABLE6_SAMPLES, device="cuda", draws=draws,
+            verbose=False)
+        emit(name, draws=draws, summary=rec["summary"],
+             samples={k: rec[k] for k in ("mm", "fa", "bmm")})
+        times = [t for fam in ("mm", "fa") for r in rec[fam]
+                 for t in r["ms"].values()] + [r["ms"] for r in rec["bmm"]]
+        errs = [e for fam in ("mm", "fa") for r in rec[fam]
+                for e in r["rel_err"].values()] + [r["rel_err"]
+                                                    for r in rec["bmm"]]
+        if min(times) <= 0 or not np.isfinite(errs).all():
+            raise AssertionError(f"table6 {draws}: a time not positive or "
+                                 f"an error not finite: {rec['summary']}")
     return out
 
 
@@ -3962,7 +3967,9 @@ def phase_paper(store, grid):
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t
         neusight[dname] = model
-        torch.save(model.state(), OUT / f"neusight_{dname}.pt")
+        rec.setdefault("neusight_paths", {})[dname] = path = str(
+            OUT / f"neusight_{dname}.pt")
+        torch.save(model.state(), path)
         err = [abs(model.predict_matmul(s["m"], s["n"], s["k"])
                    - s["duration"]) / s["duration"] for s in samples]
         mem_err = [abs(model.predict_memory(s["features"]) - s["duration"])
@@ -4157,7 +4164,9 @@ def phase_dist(train):
     phase ``train``'s launcher at the same steps and its step time beside
     that launcher's; (b) DIST_PSUM_RANKS gloo ranks sharing the card:
     ``compressed_psum`` of CUDA tensors over them equal bit for bit to the
-    host's on the same rows.  Two ranks train on no card here: gloo
+    host's on the same rows; (c) DIST_SERVE: one NCCL rank a model at
+    ``--mesh 1x1`` serving through the sharded path, the models side by
+    side (``dist_serve``).  Two ranks train on no card here: gloo
     carries DTensor's functional collectives on CUDA tensors into a
     segfault in this torch (``PERF.md`` §7), and NCCL takes one rank a
     card.  The hand-kernel launches are counted in the rank processes,
@@ -4165,6 +4174,11 @@ def phase_dist(train):
     t0 = time.perf_counter()
     runs, launches = [], {"matmul": 0, "flash_attention": 0,
                           "flash_attention_bwd": 0}
+    serve = dist_serve()
+    for rec in serve:
+        for part in ("plain_launches", "mesh_launches"):
+            for k in ("matmul", "flash_attention"):
+                launches[k] += rec[part][k]
     for dname in DTYPES:
         recs = dist_launch(1, [
             "--", "--arch", MODEL, "--steps", str(DIST_ONE_STEPS), "--batch",
@@ -4188,8 +4202,71 @@ def phase_dist(train):
     here = hand_launches()
     if any(here.values()):
         raise AssertionError(f"phase dist launched in the parent: {here}")
-    return {"runs": runs, "psum": psum, "launches": launches,
-            "seconds": time.perf_counter() - t0}
+    return {"runs": runs, "psum": psum, "serve": serve,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def dist_serve():
+    """DIST_SERVE, one torchrun of ``scripts/torch_dist_serve.py`` (1x1) a
+    model, all started together: each rank record with its checks (finite
+    logits; the prefill's logits and caches and every step's logits within
+    DECODE_TOL of the model without a mesh; the sharded run's flash
+    launches those of the run without a mesh, at least one a layer, all at
+    the model's head dim)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for arch, depth, dname, _ in DIST_SERVE:
+            prefix = OUT / f"dist_serve_{arch}_rank"
+            for old in OUT.glob(f"dist_serve_{arch}_rank*.json"):
+                old.unlink()
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", "1",
+                   str(DIST_SERVE_SCRIPT), "--record", str(prefix),
+                   "--arch", arch, "--compute-dtype", dname, "--batch",
+                   str(DIST_SERVE_BATCH), "--prompt", str(DIST_SERVE_PROMPT),
+                   "--steps", str(DIST_SERVE_STEPS)]
+            if depth:
+                cmd += ["--n-layers", str(depth)]
+            log = open(OUT / f"dist_serve_{arch}.log", "w")
+            procs[arch] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT,
+                                            env=env, cwd=ROOT), log, prefix)
+        for arch, (proc, log, _) in procs.items():
+            code = proc.wait(timeout=max(
+                DIST_TIMEOUT - (time.perf_counter() - t0), 1))
+            if code:
+                raise AssertionError(
+                    f"dist serve {arch}: exit {code}\n"
+                    f"{(OUT / f'dist_serve_{arch}.log').read_text()[-4000:]}")
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out = []
+    for arch, depth, dname, hd in DIST_SERVE:
+        rec = json.loads(Path(f"{procs[arch][2]}0.json").read_text())
+        cfg = cfg_registry.get(arch)
+        n_layers = depth or cfg.n_layers
+        flash = rec["mesh_launches"]
+        tol = DECODE_TOL[dname]
+        rec["checks"] = {
+            "finite": rec["finite"],
+            "prefill_within_tol": rec["prefill_err"] < tol,
+            "cache_within_tol": rec["cache_err"] < tol,
+            "steps_within_tol": max(rec["step_errs"]) < tol,
+            "flash_as_unsharded": flash == rec["plain_launches"],
+            "flash_every_layer": flash["flash_attention"] >= n_layers,
+            "flash_at_head_dim": set(flash["flash_by_hd"]) == {str(hd)}}
+        emit("dist_serve", **rec)
+        if not all(rec["checks"].values()):
+            raise AssertionError(f"dist serve {arch}: {rec['checks']}: "
+                                 f"{rec}")
+        out.append(rec)
+    return out
 
 
 def phase_dryrun(train):
@@ -4202,24 +4279,28 @@ def phase_dryrun(train):
     parameters', AdamW state's and batch's, and its roofline bound
     (``roofline_terms`` on the card's datasheet, in the cell's dtype) is at
     or below the measured median step (the ratio is reported); (b) MODEL
-    at DRYRUN_CELLS on the fake (32, 8) mesh, every row ``ok``.  The
-    wrappers' launches are counted in the dry-run processes, each cell's
-    from where it starts, and summed (``launches``): all must be 0.  Fails
-    on any check."""
+    at DRYRUN_CELLS on the fake (32, 8) mesh, every row ``ok``; (c) each
+    of DRYRUN_KINDS at DRYRUN_KIND_CELL on that mesh (expert parallelism,
+    cross caches over a 'model' extent that does not divide the heads, the
+    xLSTM states), every row ``ok``.  The wrappers' launches are counted
+    in the dry-run processes, each cell's from where it starts, and summed
+    (``launches``): all must be 0.  Fails on any check."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cell = ["--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--compute-dtype", *DTYPES]
+    cell = ["--arch", MODEL, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--compute-dtype", *DTYPES]
     runs = {f"train_shape_{m}": cell + (["--device-mesh", "none"]
                                         if m == "none" else ["--mesh", m])
             for m in DRYRUN_MESHES}
-    runs["production"] = ["--shape", *DRYRUN_CELLS]
+    runs["production"] = ["--arch", MODEL, "--shape", *DRYRUN_CELLS]
+    for arch in DRYRUN_KINDS:
+        runs[f"production_{arch}"] = ["--arch", arch, "--shape",
+                                      DRYRUN_KIND_CELL]
     procs = {}
     try:
         for tag, args in runs.items():
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", MODEL, *args, "--json",
-                   str(OUT / f"dryrun_{tag}.json")]
+                   *args, "--json", str(OUT / f"dryrun_{tag}.json")]
             log = open(OUT / f"dryrun_{tag}.log", "w")
             procs[tag] = (subprocess.Popen(cmd, stdout=log,
                                            stderr=subprocess.STDOUT, env=env,
@@ -4249,7 +4330,8 @@ def phase_dryrun(train):
     for row in rows:
         emit("dryrun", **row)
     prod = []
-    for r in reports["production"]:
+    for r in (r for tag, reps in reports.items()
+              if tag.startswith("production") for r in reps):
         row = {k: r[k] for k in ("arch", "shape", "mesh", "ok", "error",
                                  "compile_s", "flops_per_device",
                                  "bytes_per_device", "collectives",
@@ -4267,12 +4349,76 @@ def phase_dryrun(train):
     bad = [r["checks"] for r in rows if not all(r["checks"].values())]
     failed = [r["shape"] for r in prod if not r["ok"]]
     if bad or failed or len(rows) != 2 * len(DRYRUN_MESHES) \
-            or len(prod) != len(DRYRUN_CELLS):
+            or len(prod) != len(DRYRUN_CELLS) + len(DRYRUN_KINDS):
         raise AssertionError(f"dryrun: checks {bad}, production rows not ok "
                              f"{failed}")
     here = hand_launches()
     if any(here.values()):
         raise AssertionError(f"phase dryrun launched in the parent: {here}")
+    return out
+
+
+def phase_drivers(store, neusight_path):
+    """The paper's other drivers (``repro_torch.benchmarks``) on the card's
+    store, at the sizes of the JAX package's ``--fast`` and ``--dry-run``,
+    each asserting its own self-checks: the NAS preprocessing speed (200k
+    sampled configs, the full-model grid, NeuSight's µs a prediction from
+    phase ``paper``'s float32 model at ``neusight_path``, which must
+    exist), the fleet matrix (qwen3-mini on every
+    fleet device), the strategy sweep (every point within 1e-9 of the
+    per-spec loop, 1F1B never above GPipe), the serving sweep (the
+    zero-decode mix equal to ``latency_query``, batched equal to the loop,
+    faster), the parallel and overlap sweeps, and comm validation (every
+    bundled trace within its budget, link_bw / 3 failing each, replay
+    deterministic).  The drivers' own output goes to
+    ``chiprun_out/drivers.log``; their records under ``chiprun_out/``.
+    Fails on any check."""
+    t0 = time.perf_counter()
+    if not os.path.exists(neusight_path):
+        raise AssertionError(f"drivers: phase paper's float32 NeuSight "
+                             f"model is missing: {neusight_path}")
+    with open(OUT / "drivers.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        nas = nas_speed.run(store, limit=200_000, device="cuda",
+                            neusight_path=neusight_path)
+        fleet = fleet_compare.run(store, archs=["qwen3-mini"],
+                                  device="cuda")
+        strategy = strategy_sweep.dry_run(store)
+        serving = serving_sweep.dry_run(store)
+        parallel = parallel_scaling.dry_run(store)
+        pipe, train = overlap_scaling.dry_run(store)
+        comm_rec = comm_validation.run(
+            dry=True, path=str(OUT / "BENCH_comm_validation_dry.json"))
+    out = {
+        "nas": {k: nas[k] for k in ("pm2lat_us", "n_sampled",
+                                    "model_grid_us_per_model",
+                                    "model_grid_models", "neusight_us")},
+        "fleet_ms": {dt: {dev: x * 1e3 for dev, x in row.items()}
+                     for dt, row in fleet["qwen3-mini"].items()},
+        "strategy": {k: strategy[k] for k in (
+            "n_specs", "specs_per_sec", "speedup", "max_rel_err",
+            "schedule_vs_gpipe", "best")},
+        "serving": {k: serving[k] for k in (
+            "n_points", "cold_points_per_sec", "warm_points_per_sec",
+            "speedup", "max_rel_err")},
+        "parallel": parallel, "overlap": {"pipeline": pipe,
+                                          "training": train},
+        "comm": {"reports": [(r["name"], r["mean_rel_err"], r["passed"])
+                             for r in comm_rec["reports"]],
+                 "perturbed": comm_rec["perturbed"]},
+        "seconds": time.perf_counter() - t0}
+    emit("drivers", **out)
+    checks = {"nas": nas["n_sampled"] > 0 and nas["pm2lat_us"] > 0,
+              "fleet": all(np.isfinite(x) and x > 0
+                           for row in out["fleet_ms"].values()
+                           for x in row.values()),
+              "parallel": len(parallel) == 4,
+              "overlap": len(pipe) == len(train) == 2}
+    if not all(checks.values()):
+        raise AssertionError(f"drivers: {checks}")
+    here = hand_launches()
+    if any(here.values()):
+        raise AssertionError(f"phase drivers launched a hand kernel: {here}")
     return out
 
 
@@ -4887,10 +5033,11 @@ def bwd_line(gen, by_path):
     """The flash backward at the train path's attention (qwen2-0.5b, B 8 x
     S 512, 14 heads over 2 at hd 64, causal), bf16 and, under
     ``float32``, float32: its time against its plain version's and SDPA's
-    backward (one ``autograd.grad`` of ``scaled_dot_product_attention``
-    over KV heads repeated to the query heads: a yardstick only, never on
-    the path; its forward runs on a side stream, where its backward is
-    captured for ``library_device_ms``), and SDPA's gradients against the
+    backward (one call of the backward node of
+    ``scaled_dot_product_attention`` over KV heads repeated to the query
+    heads: a yardstick only, never on the path; its forward runs on a side
+    stream, where its backward is captured for ``library_device_ms``), and
+    SDPA's gradients against the
     same plain version (``library_max_rel_err``, the group's repeated KV
     heads summed in f32).  Bound: the five products over the pairs the
     causal mask keeps (10 hd flops a pair and head) and q, k, v, o, dO,
@@ -4922,8 +5069,11 @@ def bwd_line(gen, by_path):
             o = torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True)
             do = args[5].transpose(1, 2).contiguous()
-            sdpa_bwd = lambda: torch.autograd.grad(o, (q, k, v), do,
-                                                   retain_graph=True)
+            # SDPA's backward node called on this thread: one PyTorch call
+            # into the library's backward (cuDNN's in bf16, the efficient
+            # kernel's in float32), without the autograd engine's thread
+            # hop, which set the pace of ``torch.autograd.grad`` here
+            sdpa_bwd = lambda: o.grad_fn(do)[:3]
             gq, gk, gv = sdpa_bwd()
             grouped = lambda g: g.transpose(1, 2).float().reshape(
                 B, S, Hkv, H // Hkv, hd).sum(3)
@@ -5037,6 +5187,7 @@ def main() -> int:
     # this run's comm-calibration artifact only, written in phase service
     os.environ[comm.CALIBRATION_ENV] = str(COMM_CAL)
     COMM_CAL.unlink(missing_ok=True)
+    (OUT / "phases.jsonl").unlink(missing_ok=True)
     record = {}
 
     smi = phase_device()
@@ -5101,6 +5252,9 @@ def main() -> int:
     paper = phase_paper(store, grid)
     by_path["paper"] = hand_launches()
     reset_launches()
+    drivers = phase_drivers(store, paper["neusight_paths"]["float32"])
+    by_path["drivers"] = hand_launches()
+    reset_launches()
     train = phase_train(store)
     by_path["train"] = hand_launches()
     reset_launches()
@@ -5142,7 +5296,7 @@ def main() -> int:
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
                   encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
-                  train=train, dist=dist, dryrun=dry,
+                  train=train, dist=dist, dryrun=dry, drivers=drivers,
                   kernels=kernels,
                   matmul_floors=floors,
                   nvidia_smi=smi, seconds=time.time() - t_start)

@@ -1,8 +1,13 @@
-"""Shared benchmark utilities: error metrics, the device's calibration, and
-the NeuSight baseline trained (and cached) on the device."""
+"""Shared benchmark utilities: error metrics, CSV rows, timers, the
+device's calibration, the NeuSight baseline trained (and cached) on the
+device, and the drivers' JSON records.  Records go under the port's
+artifacts (``artifacts/torch/``, or ``$REPRO_ARTIFACTS/torch``), never to
+the JAX package's ``artifacts/BENCH_*.json`` or the checkout's root."""
 from __future__ import annotations
 
+import json
 import os
+import time
 
 import torch
 
@@ -10,6 +15,34 @@ from repro_torch.core import calibrate
 from repro_torch.core import memory_model as mm
 from repro_torch.core.baselines import neusight as ns
 from repro_torch.core.baselines.roofline import best_matmul_throughput
+
+
+def emit(name: str, us_per_call: float, derived):
+    """One CSV row: name,us_per_call,derived (the JAX package's format)."""
+    print(f"{name},{us_per_call:.3f},{derived}", flush=True)
+
+
+class timer:
+    """``with timer() as t: ...``; then ``t.s``, the seconds it took."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *a):
+        self.s = time.perf_counter() - self.t0
+
+
+def write_bench(name: str, payload: dict, dry: bool = False,
+                path: str = None) -> str:
+    """One driver's record as JSON at ``path``, by default
+    ``<artifacts>/torch/BENCH_<name>[_dry].json``; returns the path."""
+    path = path or os.path.join(calibrate.artifacts_dir(),
+                                f"BENCH_{name}{'_dry' if dry else ''}.json")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=1)
+    return path
 
 
 def rel_err(pred: float, meas: float) -> float:

@@ -20,11 +20,17 @@ package's ``core/jaxpr_cost.py``:
     its own kernel.  Ops that only make a view (``is_view``, and the
     metadata-only ``_unsafe_view``/``detach``/``alias``) launch nothing and
     count nothing.
+
+A model's Python loop over a sequence asks ``loop_trips`` how many of its
+iterations to run: all of them, unless a counter has installed a hook
+(``set_loop_hook``) that runs fewer and counts them as many times as the
+loop has trips, as the dry run's counter does (``core/jaxpr_cost.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -119,3 +125,35 @@ def cost_of(fn: Callable, *specs: Tuple[Sequence[int], torch.dtype]
     with CostCounter() as counter:
         fn(*args)
     return counter.cost.as_features()
+
+
+_loop_hook = None
+
+
+def set_loop_hook(hook):
+    """Install ``hook(trips, probe)``, a context manager that yields how
+    many iterations a loop runs, in ``loop_trips``; None takes it away.
+    Returns the hook it replaced."""
+    global _loop_hook
+    prev, _loop_hook = _loop_hook, hook
+    return prev
+
+
+@contextlib.contextmanager
+def loop_trips(trips: int, probe: torch.Tensor):
+    """How many of a loop's ``trips`` iterations to run: ``trips`` without
+    a hook, else what the installed hook yields for the loop's input
+    ``probe``."""
+    if _loop_hook is None:
+        yield trips
+        return
+    with _loop_hook(trips, probe) as n:
+        yield n
+
+
+def loop_outputs(outs: List[torch.Tensor], trips: int) -> List[torch.Tensor]:
+    """The per-iteration outputs of a loop of ``trips`` iterations that ran
+    ``len(outs)`` of them: uninitialised tensors of the last one's shape and
+    layout stand in for the rest (a hook runs fewer iterations only where
+    no value is read)."""
+    return outs + [torch.empty_like(outs[-1])] * (trips - len(outs))

@@ -159,9 +159,15 @@ class CollectiveCounter(jaxpr_cost.CostCounter):
         name = jaxpr_cost.op_name(func)
         if name in _KINDS:
             kind = _KINDS[name]
-            accumulate(self.stats.by_kind, kind, _nbytes(args[0]),
-                       _nbytes(out), _group_size(func, args, kwargs))
-            self.operands[kind][operand_key(args[0])] += 1
+            # priced once, then added ``scale`` times: a loop that ``scan``
+            # ran once counts what its every iteration would add
+            one = empty_stats().by_kind
+            accumulate(one, kind, _nbytes(args[0]), _nbytes(out),
+                       _group_size(func, args, kwargs))
+            rec = self.stats.by_kind[kind]
+            for i, v in enumerate(one[kind]):
+                rec[i] += v * self.scale
+            self.operands[kind][operand_key(args[0])] += self.scale
 
 
 def cost_summary(counter: jaxpr_cost.CostCounter) -> Dict[str, float]:

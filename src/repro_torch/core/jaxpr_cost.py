@@ -6,10 +6,14 @@ counts loop bodies once, and multiplies each scan body by its length.
 The port has no jaxpr and no compiler output to read: it runs the
 function once on meta tensors (shapes and dtypes, no data, no kernel)
 under a ``TorchDispatchMode`` and prices every aten op dispatched.  Eager
-Python loops (layers, cross-entropy chunks, microbatches, the sLSTM scan,
-AdamW's tensors) dispatch every iteration, so there is no trip count to
-multiply; the recompute of ``torch.utils.checkpoint`` (remat) dispatches
-again inside the backward and is counted there.
+Python loops (layers, cross-entropy chunks, microbatches, AdamW's
+tensors) dispatch every iteration, so there is no trip count to multiply;
+the recompute of ``torch.utils.checkpoint`` (remat) dispatches again
+inside the backward and is counted there.  The two loops over a sequence,
+the sLSTM scan and the mLSTM chunk loop, are the reference's scans: under
+a counter on meta tensors they run one iteration inside ``scan``, whose
+ops, collectives and hand-kernel calls count as many times as the loop
+has trips (each iteration dispatches the same ops at the same shapes).
 
 Conventions (the reference's, on aten ops):
   - flops and transcendentals are ``core/cost.py::op_cost``'s: matrix
@@ -37,13 +41,15 @@ propagation, run on ``FakeTensor``s at the global shapes, is not counted.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 
 from repro_torch.core import cost as _cost
 
@@ -79,6 +85,10 @@ class Cost:
         self.transcendentals += o.transcendentals
         self.bytes_prefusion += o.bytes_prefusion
         return self
+
+    def times(self, n: int) -> "Cost":
+        return Cost(self.flops * n, self.bytes * n, self.transcendentals * n,
+                    self.bytes_prefusion * n)
 
     def as_dict(self) -> Dict[str, float]:
         return {"flops": self.flops, "bytes": self.bytes,
@@ -120,15 +130,28 @@ def op_price(func, args, kwargs, out) -> Cost:
 class CostCounter(TorchDispatchMode):
     """Accumulates ``op_price`` over every aten op dispatched inside it
     (``cost``), by op name (``by_op``; a hand kernel's calls under
-    ``kernel:<name>``), and the hand kernels' calls (``kernel_calls``)."""
+    ``kernel:<name>``), and the hand kernels' calls (``kernel_calls``).
+    Inside ``scan`` each is counted ``scale`` times; while a counter is
+    entered, ``scan`` prices the models' loops (``cost.loop_trips``)."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
         self.by_op: Dict[str, Cost] = {}
         self.kernel_calls: Dict[str, int] = {}
+        self.scale = 1
+        self._outer_hook = None
+
+    def __enter__(self):
+        self._outer_hook = _cost.set_loop_hook(scan)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _cost.set_loop_hook(self._outer_hook)
+        return super().__exit__(*exc)
 
     def _add(self, key: str, c: Cost):
+        c = c.times(self.scale)
         self.cost += c
         self.by_op.setdefault(key, Cost())
         self.by_op[key] += c
@@ -155,13 +178,41 @@ class CostCounter(TorchDispatchMode):
         """One hand-kernel call (``kernels.priced.report``)."""
         io = sum(_cost._nbytes(t) for t in list(inputs) + list(outputs))
         self._add(f"kernel:{name}", Cost(flops, io, transcendentals, io))
-        self.kernel_calls[name] = self.kernel_calls.get(name, 0) + 1
+        self.kernel_calls[name] = self.kernel_calls.get(name, 0) + self.scale
 
     def product_flops(self) -> float:
         """The flops of the matrix products (aten ``mm``, ``bmm``,
         ``addmm``, ``baddbmm``), hand kernels not included."""
         return sum(c.flops for k, c in self.by_op.items()
                    if k in _cost._MATMUL)
+
+
+@contextlib.contextmanager
+def scan(trips: int, probe: torch.Tensor):
+    """A Python loop of ``trips`` iterations priced as the reference prices
+    a scan, its body times its length (the hook ``CostCounter`` installs in
+    ``cost.loop_trips``): on meta tensors (``probe``) under a counter,
+    where no gradient is recorded, yields 1, and each op, collective and
+    hand-kernel call dispatched inside counts ``trips`` times; elsewhere
+    (a real device, no counter, or a loop whose backward autograd will
+    run) yields ``trips`` and changes nothing.  A recorded loop runs whole
+    because its iterations' backward differs (the first takes no gradient
+    of the initial state, and the inputs every iteration reads sum one
+    gradient an iteration), which one iteration cannot stand for."""
+    recorded = torch.is_grad_enabled() and probe.requires_grad
+    counters = [m for m in _get_current_dispatch_mode_stack()
+                if isinstance(m, CostCounter)] \
+        if probe.is_meta and not recorded else []
+    if not counters or trips <= 1:
+        yield trips
+        return
+    for c in counters:
+        c.scale *= trips
+    try:
+        yield 1
+    finally:
+        for c in counters:
+            c.scale //= trips
 
 
 def count(fn: Callable, *args, **kwargs) -> CostCounter:

@@ -22,6 +22,14 @@ check of the indices, as ``F.one_hot`` makes on the card), so the decode
 step stays capturable as a CUDA graph.  The expert products are E batched
 products of (G·C, d) × (d, f): the expert weights are never broadcast over
 the groups.
+
+On a mesh (DTensor activations) the groups lie over the data-parallel
+dims and the experts over 'model' (``_RULES``' ``experts`` rows).  The
+routing, the gather mode's scatter into slots and its combine run on each
+rank's own groups through ``local_map`` (``_by_group``): nothing of it is
+gathered over 'data', and each rank combines only its own experts' slots
+into a partial sum over 'model', as the einsum mode's combine product
+does.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import os
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Partial
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import sharding as sh
@@ -94,6 +104,31 @@ def expert_capacity(tokens_per_group: int, moe: MoEConfig) -> int:
 def _one_hot(idx, n: int, dtype):
     """``idx`` (...) -> (..., n), by comparison on idx's device."""
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _by_group(fn, args, in_dims, out_dims):
+    """``fn(*args)``; on DTensor ``args`` (a mesh) through ``local_map`` on
+    each rank's own groups.  ``in_dims`` and ``out_dims`` give each input's
+    and output's layout as logical entries after its group dim (dim 0),
+    which lies over the data-parallel dims where their extent divides the
+    groups, else whole; an entry ``"partial"`` marks an output that is a
+    partial sum over 'model'."""
+    if not sh.is_sharded(args[0]):
+        return fn(*args)
+    mesh = args[0].device_mesh
+    g = "dp" if args[0].shape[0] % sh.dp_size() == 0 else None
+
+    def place(rest):
+        partial = rest == "partial"
+        pl = sh.placements(sh.spec(g, *(() if partial else rest)), mesh)
+        if partial:
+            pl[list(mesh.mesh_dim_names).index(sh.TP_AXIS_NAME)] = Partial()
+        return pl
+    outs = [place(r) for r in out_dims]
+    return local_map(fn, out_placements=tuple(outs) if len(outs) > 1
+                     else outs[0],
+                     in_placements=tuple(place(r) for r in in_dims),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def _top_k(router_probs, moe: MoEConfig):
@@ -169,6 +204,55 @@ def _top_k_routing(router_probs, moe: MoEConfig, capacity: int):
     return idx, torch.stack(slots, -1), torch.stack(keeps, -1), gates
 
 
+def _gather_routing(router_probs, moe: MoEConfig, capacity: int):
+    """The gather mode's routing: (flat slot of each (token, choice), E·C
+    where it is dropped; keep; gate; the (G, S, E) share of kept pairs
+    each expert takes, the load-balance loss's fraction)."""
+    E = router_probs.shape[-1]
+    e_idx, slot, keep, gates = _top_k_routing(router_probs, moe, capacity)
+    routed = _one_hot(e_idx[..., 0], E, torch.float32) * keep[..., 0, None]
+    for kk in range(1, moe.top_k):
+        routed = routed + _one_hot(e_idx[..., kk], E, torch.float32) \
+            * keep[..., kk, None]
+    flat = torch.where(keep, e_idx * capacity + slot, E * capacity)
+    return flat, keep, gates, routed
+
+
+def _scatter_slots(xg, flat, n_slots: int):
+    """xg (G, S, d) and flat (G, S, K) -> (G, n_slots + 1, d): each kept
+    (token, choice) added into its slot, the dropped ones into the dump
+    slot last."""
+    G, S, d = xg.shape
+    K = flat.shape[-1]
+    src = xg[:, :, None, :].expand(G, S, K, d)
+    xe = torch.zeros((G, n_slots + 1, d), dtype=xg.dtype, device=xg.device)
+    xe.scatter_add_(1, flat.reshape(G, -1, 1).expand(-1, -1, d),
+                    src.reshape(G, -1, d))
+    return xe
+
+
+def _combine_slots(ye, flat, keep, gates, capacity: int, by_expert: bool):
+    """ye (G, E, C, d) -> (G, S, d): each token's kept slots, weighted by
+    their gates.  ``by_expert``: ``ye`` holds this rank's share of the
+    experts over 'model' (a local tensor in ``local_map``), and only the
+    slots of those experts are combined, a partial sum over 'model'."""
+    G, E, C, d = ye.shape
+    lo = 0
+    if by_expert:
+        lo = sh.current_mesh().get_local_rank(sh.TP_AXIS_NAME) * E * C
+        keep = keep & (flat >= lo) & (flat < lo + E * C)
+    local = torch.where(keep, flat - lo, E * C)
+    ye_flat = torch.cat([ye.reshape(G, E * C, d),
+                         torch.zeros((G, 1, d), dtype=ye.dtype,
+                                     device=ye.device)], dim=1)
+    S, K = flat.shape[1], flat.shape[2]
+    picked = torch.gather(
+        ye_flat, 1, local.reshape(G, -1, 1).expand(-1, -1, d)) \
+        .view(G, S, K, d)                                     # (G, S, K, d)
+    w = torch.where(keep, gates, 0.0).to(ye.dtype)
+    return (picked * w[..., None]).sum(2)
+
+
 def _experts(p: MoE, xe, act: str):
     """xe (G, E, C, d) -> (G, E, C, d): each expert's FFN over its slots,
     as E batched products of (G·C, d) x (d, f)."""
@@ -209,22 +293,18 @@ def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
     cdt = compute_dtype or xg.dtype
 
     if mode == "gather":
-        e_idx, slot, keep, gates = _top_k_routing(probs, moe, cap)
-        routed = torch.zeros(probs.shape, dtype=torch.float32,
-                             device=x.device)
-        for kk in range(moe.top_k):
-            routed += _one_hot(e_idx[..., kk], E, torch.float32) \
-                * keep[..., kk, None].float()
+        flat, keep, gates, routed = _by_group(
+            lambda p_: _gather_routing(p_, moe, cap), (probs,),
+            [(None, None)], [(None, None)] * 4)
         lb = E * (routed.mean((0, 1)) * probs.mean((0, 1))).sum()
-        flat = torch.where(keep, e_idx * cap + slot, E * cap)   # dump slot
-        K = moe.top_k
-        src = xg.to(cdt)[:, :, None, :].expand(G, T // G, K, d)
-        xe = torch.zeros((G, E * cap + 1, d), dtype=cdt, device=x.device)
-        xe.scatter_add_(1, flat.reshape(G, -1, 1).expand(-1, -1, d),
-                        src.reshape(G, -1, d))
+        xe = _by_group(lambda x_, f_: _scatter_slots(x_.to(cdt), f_, E * cap),
+                       (xg, flat), [(None, None), (None, None)],
+                       [(None, None)])
         xe = xe[:, :E * cap].reshape(G, E, cap, d)
     else:
-        dispatch, combine = _top_k_mask(probs, moe, cap)
+        dispatch, combine = _by_group(
+            lambda p_: _top_k_mask(p_, moe, cap), (probs,), [(None, None)],
+            [(None, None, None)] * 2)
         lb = load_balance_loss(probs, dispatch)
         disp = dispatch.to(cdt).reshape(G, T // G, E * cap)
         xe = torch.bmm(disp.transpose(1, 2), xg.to(cdt)) \
@@ -232,14 +312,14 @@ def moe_ffn(p: MoE, x, moe: MoEConfig, act: str, *, num_groups=None,
     ye = _experts(p, sh.constrain(xe, "dp", "tp", None, None), act)
 
     if mode == "gather":
-        ye_flat = torch.cat([ye.reshape(G, E * cap, d),
-                             torch.zeros((G, 1, d), dtype=ye.dtype,
-                                         device=ye.device)], dim=1)
-        picked = torch.gather(
-            ye_flat, 1, flat.reshape(G, -1, 1).expand(-1, -1, d)) \
-            .view(G, T // G, moe.top_k, d)                    # (G, S, K, d)
-        w = torch.where(keep, gates, 0.0).to(cdt)
-        y = (picked * w[..., None]).sum(2)
+        by_expert = sh.is_sharded(ye) and E % sh.tp_size() == 0
+        y = _by_group(
+            lambda ye_, f_, k_, g_: _combine_slots(ye_, f_, k_, g_, cap,
+                                                   by_expert),
+            (ye, flat, keep, gates),
+            [("tp" if by_expert else None, None, None), (None, None),
+             (None, None), (None, None)],
+            ["partial" if by_expert else (None, None)])
     else:
         y = torch.bmm(combine.to(cdt).reshape(G, T // G, E * cap),
                       ye.reshape(G, E * cap, d))              # gsec,gecd->gsd

@@ -19,6 +19,16 @@ max m of the log gates, which starts at -inf.  The sLSTM is a scan over
 the sequence with its hidden-to-gate product inside: a Python loop over S
 here, as ``lax.scan`` is there.
 
+On a mesh (DTensor activations) the chunkwise mLSTM cell runs on each
+rank's own batch and heads through ``local_map``, laid out as at the flash
+kernel's boundary; the sLSTM's state starts on the input's mesh and is
+carried with the decode cache's layout (batch over the data-parallel dims,
+the width over 'model'), so every step of the scan sees the same layout.
+Both loops ask ``core/cost.loop_trips`` how many iterations to run: all
+of them, except under the dry run's counter on ``meta`` tensors where no
+gradient is recorded, which runs one and counts it as many times as the
+loop has trips, as the reference prices a scan.
+
 The JAX package has no Pallas kernel for any of this, so it is plain
 PyTorch on every device.  Kept for parity with the reference: the gates
 run in f32 whatever the compute dtype, with the gate weights kept in f32
@@ -37,8 +47,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.core import cost
 from repro_torch.distributed import sharding as sh
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
 RGLRU_C = 8.0
@@ -249,7 +262,21 @@ def mlstm_cell_chunkwise(q, k, v, i_raw, f_logsig, chunk: int = MLSTM_CHUNK):
     dtype's values) in f32; the carried C and n and the intra-chunk
     weights are rounded to q's dtype before the products they enter, as
     the reference rounds them.  Returns h (B, S, H, hd) in q's dtype and
-    (C, n, m) f32."""
+    (C, n, m) f32.  DTensor inputs (a mesh) run on each rank's own batch
+    and heads."""
+    if sh.is_sharded(q):
+        B, H = q.shape[0], q.shape[2]
+        pl = lambda at: ops.attention_placements(q.device_mesh, B, H, H,
+                                                 heads_at=at)
+
+        def flat(*a):
+            h, state = mlstm_cell_chunkwise(*a, chunk=chunk)
+            return (h, *state)
+        h, *state = local_map(
+            flat, out_placements=(pl(2), pl(1), pl(1), pl(1)),
+            in_placements=(pl(2),) * 5, device_mesh=q.device_mesh,
+            redistribute_inputs=True)(q, k, v, i_raw, f_logsig)
+        return h, tuple(state)
     B, S, H, hd = q.shape
     if S % chunk:
         chunk = S
@@ -265,32 +292,38 @@ def mlstm_cell_chunkwise(q, k, v, i_raw, f_logsig, chunk: int = MLSTM_CHUNK):
     n = torch.zeros((B, H, hd), dtype=f32, device=dev)
     m = torch.full((B, H), -math.inf, dtype=f32, device=dev)
     hs = []
-    for j in range(nC):
-        qj, kj, vj, ij, bj = qc[:, j], kc[:, j], vc[:, j], ic[:, j], b[:, j]
-        btot = bj[:, -1]
-        # log weight of key tau for query t (tau <= t): b_t - b_tau + i_tau
-        g = (bj[:, :, None] - bj[:, None] + ij[:, None]).masked_fill(
-            ~tri, -math.inf)
-        m_t = torch.maximum(bj + m[:, None], g.amax(dim=2))
-        inter_w = torch.exp(bj + m[:, None] - m_t)
-        SP = torch.einsum("blhd,bthd->blth", qj, kj) \
-            * torch.exp(g - m_t[:, :, None]).masked_fill(~tri, 0.0)
-        num = (inter_w[..., None] * torch.einsum("blhd,bhvd->blhv", qj, up(C))
-               + torch.einsum("blth,bthv->blhv", up(SP), vj))
-        den = (inter_w * torch.einsum("blhd,bhd->blh", qj, up(n))
-               + SP.sum(dim=2))
-        den = torch.maximum(den.abs(), torch.exp(-m_t))
-        hs.append(num / den[..., None])
-        # the state at the chunk's end
-        g_end = btot[:, None] - bj + ij
-        m_end = torch.maximum(btot + m, g_end.amax(dim=1))
-        w_end = up(torch.exp(g_end - m_end[:, None]))
-        decay = torch.exp(btot + m - m_end)
-        C = decay[..., None, None] * C + torch.einsum(
-            "blhv,blhd->bhvd", w_end[..., None] * vj, kj)
-        n = decay[..., None] * n + torch.einsum("blh,blhd->bhd", w_end, kj)
-        m = m_end
-    h = torch.stack(hs, 1).reshape(B, S, H, hd)
+    with cost.loop_trips(nC, q) as trips:
+        for j in range(trips):
+            qj, kj, vj = qc[:, j], kc[:, j], vc[:, j]
+            ij, bj = ic[:, j], b[:, j]
+            btot = bj[:, -1]
+            # log weight of key tau for query t (tau <= t):
+            # b_t - b_tau + i_tau
+            g = (bj[:, :, None] - bj[:, None] + ij[:, None]).masked_fill(
+                ~tri, -math.inf)
+            m_t = torch.maximum(bj + m[:, None], g.amax(dim=2))
+            inter_w = torch.exp(bj + m[:, None] - m_t)
+            SP = torch.einsum("blhd,bthd->blth", qj, kj) \
+                * torch.exp(g - m_t[:, :, None]).masked_fill(~tri, 0.0)
+            num = (inter_w[..., None]
+                   * torch.einsum("blhd,bhvd->blhv", qj, up(C))
+                   + torch.einsum("blth,bthv->blhv", up(SP), vj))
+            den = (inter_w * torch.einsum("blhd,bhd->blh", qj, up(n))
+                   + SP.sum(dim=2))
+            den = torch.maximum(den.abs(), torch.exp(-m_t))
+            hs.append(num / den[..., None])
+            # the state at the chunk's end
+            g_end = btot[:, None] - bj + ij
+            m_end = torch.maximum(btot + m, g_end.amax(dim=1))
+            w_end = up(torch.exp(g_end - m_end[:, None]))
+            decay = torch.exp(btot + m - m_end)
+            C = decay[..., None, None] * C + torch.einsum(
+                "blhv,blhd->bhvd", w_end[..., None] * vj, kj)
+            n = decay[..., None] * n + torch.einsum("blh,blhd->bhd",
+                                                    w_end, kj)
+            m = m_end
+    h = torch.stack(cost.loop_outputs(hs, nC), 1)
+    h = h.reshape(B, S, H, hd)
     return h.to(cdt), (C, n, m)
 
 
@@ -324,13 +357,23 @@ class MLSTMBlock(nn.Module):
         B, S = x_m.shape[:2]
         _, H, hd = self.dims
         scale = torch.tensor(math.sqrt(hd)).to(x_m.dtype).item()
-        return (self.wq(c, compute_dtype).reshape(B, S, H, hd),
-                self.wk(c, compute_dtype).reshape(B, S, H, hd) / scale,
-                self.wv(x_m, compute_dtype).reshape(B, S, H, hd))
+
+        def heads(y):
+            # a width split over a 'model' extent that does not divide
+            # the heads cannot be cut into whole heads: gather it first
+            if H % sh.tp_size():
+                y = sh.constrain(y, "dp", None, None)
+            return y.reshape(B, S, H, hd)
+        return (heads(self.wq(c, compute_dtype)),
+                heads(self.wk(c, compute_dtype)) / scale,
+                heads(self.wv(x_m, compute_dtype)))
 
     def _out(self, h, z, compute_dtype):
         B, S = z.shape[:2]
-        h = self.out_norm(h.reshape(B, S, -1), MLSTM_NORM_EPS) * F.silu(z)
+        # the norm runs over the whole width: on a mesh the heads are
+        # gathered over 'model' first
+        h = sh.constrain(h.reshape(B, S, -1), "dp", None, None)
+        h = self.out_norm(h, MLSTM_NORM_EPS) * F.silu(z)
         return self.w_down(sh.constrain(h, "dp", None, "tp"), compute_dtype)
 
     def forward(self, x, compute_dtype=None, *, chunk: int = MLSTM_CHUNK):
@@ -425,13 +468,18 @@ def slstm_cell(cell: SLSTMCell, x, state=None):
     B, S, d = x.shape
     wx = cell.wx(x.float())
     if state is None:
-        z = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        z = sh.replicate_like(
+            torch.zeros((B, d), dtype=torch.float32, device=x.device), wx)
         state = (z, z + 1e-6, z, z - 1e30)
+    carry = lambda st: tuple(sh.constrain(t, "dp", "tp") for t in st)
+    state = carry(state)
     hs = []
-    for t in range(S):
-        state = _slstm_step(cell, wx[:, t], *state)
-        hs.append(state[2])
-    return torch.stack(hs, 1).to(x.dtype), state
+    with cost.loop_trips(S, x) as trips:
+        for t in range(trips):
+            state = carry(_slstm_step(cell, wx[:, t], *state))
+            hs.append(state[2])
+    h = torch.stack(cost.loop_outputs(hs, S), 1)
+    return h.to(x.dtype), state
 
 
 class SLSTMBlock(nn.Module):

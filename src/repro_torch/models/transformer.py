@@ -162,6 +162,10 @@ class Block(nn.Module):
                                  rope=rope)
         x = x + y
         if self.kind == C.CROSS_ATTN:
+            # on a mesh whose 'model' extent does not divide the heads, the
+            # attention's output projection leaves x a partial sum over
+            # 'model', which the norm cannot take in place: reduce it first
+            x = sh.constrain_hidden(x)
             x = x + self.xattn.decode_cross(self.ln_x(x, cfg.norm_eps),
                                             *state[2:], compute_dtype=cdt)
         return self._ffn(sh.constrain_hidden(x), cfg, cdt)[0]

@@ -233,81 +233,41 @@ def reshard(arch, n_layers, healthy, batch):
     return out
 
 
-def decode(arch, n_layers, mesh, steps=4, batch=8, prompt=16, capacity=32):
+def _serving(arch, n_layers, mesh, dispatch, **kwargs):
+    """Reduced ``arch`` in float32 from seed 0, with the MoE dispatch mode
+    ``dispatch`` (``REPRO_MOE_DISPATCH``) where it is given, served on one
+    device and through the sharded path on ``mesh``
+    (``scripts/torch_dist_serve.py``'s ``compare``)."""
+    from repro_torch.configs import registry as cr
+    from repro_torch.models import registry as mr
+    from scripts.torch_dist_serve import compare
+    if dispatch:
+        os.environ["REPRO_MOE_DISPATCH"] = dispatch
+    cfg = dataclasses.replace(cr.reduced(arch, n_layers=n_layers),
+                              compute_dtype="float32")
+    model = mr.build(cfg, device="cpu", seed=0)
+    return compare(model, cfg, _mesh(mesh), **kwargs)
+
+
+def decode(arch, n_layers, mesh, steps=4, batch=8, prompt=16, capacity=32,
+           dispatch=None):
     """Reduced ``arch`` (float32, seed 0): a prefill on every rank, then
     ``steps`` decode steps with the weights under ``params_specs(serve=
-    True)`` and the caches under ``cache_specs`` on ``mesh``, against the
-    same steps on one device; the largest error relative to the largest
-    logit, and the caches' placements."""
-    import torch
-    from repro_torch.configs import registry as cr
-    from repro_torch.distributed import sharding as sh, specs as sp
-    from repro_torch.models import registry as mr
-    cfg = dataclasses.replace(cr.reduced(arch, n_layers=n_layers),
-                              compute_dtype="float32")
-    model = mr.build(cfg, device="cpu", seed=0)
-    gen = torch.Generator().manual_seed(1)
-    prompt_toks = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                                generator=gen)
-    toks = torch.randint(0, cfg.vocab_size, (steps, batch), generator=gen)
-    m = _mesh(mesh)
-    with torch.no_grad():
-        _, cache = model.prefill(prompt_toks, max_len=capacity)
-        one = cache.clone()
-        want = [model.decode_step(toks[i], one)[0] for i in range(steps)]
-        with sh.mesh_context(m):
-            sh.distribute_module_(model, sp.params_specs(model, serve=True),
-                                  m)
-            specs = sp.cache_specs(cache, cfg)
-            for field in ("k", "v"):
-                getattr(cache, field)[:] = [
-                    sh.distribute(t, s)
-                    for t, s in zip(getattr(cache, field), specs[field])]
-            got = []
-            for i in range(steps):
-                tok = sh.distribute(toks[i], sp.batch_spec((batch,)))
-                logits, cache = model.decode_step(tok, cache)
-                got.append(sh.full(logits))
-    err = max(float((g - w).abs().max() / w.abs().max())
-              for g, w in zip(got, want))
-    return {"err": err,
-            "cache_placements": [str(p) for p in cache.k[0].placements],
-            "pos": int(cache.pos)}
+    True)`` and every cache tensor (attention, cross-attention and
+    recurrent) of the one-device prefill under ``cache_specs`` on
+    ``mesh``, against the same steps on one device."""
+    return _serving(arch, n_layers, mesh, dispatch, batch=batch,
+                    prompt=prompt, steps=steps, capacity=capacity,
+                    relay_cache=True)
 
 
-def prefill(arch, n_layers, mesh, batch=8, prompt=16, capacity=32):
+def prefill(arch, n_layers, mesh, batch=8, prompt=16, capacity=32,
+            dispatch=None):
     """Reduced ``arch`` (float32, seed 0): a prefill with the weights under
-    ``params_specs(serve=True)`` and the tokens under ``batch_spec`` on
-    ``mesh``, against the same prefill on one device; the largest error of
-    the logits and of every layer's k and v caches, each relative to its
-    largest value, and the caches' placements."""
-    import torch
-    from repro_torch.configs import registry as cr
-    from repro_torch.distributed import sharding as sh, specs as sp
-    from repro_torch.models import registry as mr
-    cfg = dataclasses.replace(cr.reduced(arch, n_layers=n_layers),
-                              compute_dtype="float32")
-    model = mr.build(cfg, device="cpu", seed=0)
-    gen = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen)
-    m = _mesh(mesh)
-    with torch.no_grad():
-        want, want_cache = model.prefill(toks, max_len=capacity)
-        with sh.mesh_context(m):
-            sh.distribute_module_(model, sp.params_specs(model, serve=True),
-                                  m)
-            got, cache = model.prefill(
-                sh.distribute(toks, sp.batch_spec((batch, prompt))),
-                max_len=capacity)
-            pairs = [(sh.full(got), want)] + [
-                (sh.full(g), w) for field in ("k", "v")
-                for g, w in zip(getattr(cache, field),
-                                getattr(want_cache, field))]
-    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in pairs]
-    return {"logits_err": errs[0], "cache_err": max(errs[1:]),
-            "n_caches": len(errs) - 1,
-            "cache_placements": [str(p) for p in cache.k[0].placements],
-            "pos": int(cache.pos)}
+    ``params_specs(serve=True)`` and the tokens (and a context) under
+    ``batch_spec`` on ``mesh``, against the same prefill on one device."""
+    return _serving(arch, n_layers, mesh, dispatch, batch=batch,
+                    prompt=prompt, steps=0, capacity=capacity)
 
 
 def _main():
