@@ -67,7 +67,15 @@ through the hand flash backward kernel) with its step-0 checkpoint, the
 step timed and split into forward, backward and optimizer against PM2Lat's
 training step, one step's gradients against the plain attention on the
 card, and a run with injected failures at reduced size held against an
-uninterrupted one (``scripts/torch_train_restart.py``).  Then the
+uninterrupted one (``scripts/torch_train_restart.py``); then every other
+model kind at full width, float32 and bf16: recurrentgemma-2b at B 1 x S
+4096 (its sliding-window attention's backward through the hand kernel's
+hd-256 instances), whisper-small at B 8 x S 448 over the launcher's
+1,500-frame context (the encoder's and the cross attention's backwards
+too), xlstm-1.3b at B 1 x S 512 (no hand kernel) and moonshot-v1-16b-a3b
+with its depth cut to 4 layers, each step timed, split and priced, its
+losses falling, its launches those its layer kinds make, and, for a kind
+with attention, its gradients against the plain attention's.  Then the
 distributed path: the same launcher on a ``DeviceMesh`` under torchrun
 (``scripts/torch_dist_train.py``, one process a rank): one NCCL rank at
 ``--mesh 1x1`` through the DTensor path in float32 and bf16, its float32
@@ -438,6 +446,28 @@ TRAIN_WARM, TRAIN_TIMED = 2, 5
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
 TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
+# The train phase's other model kinds, each at full width, (arch, B, S, depth
+# or None for the config's, learning rate): recurrentgemma-2b (2.89 B
+# parameters, 46.3 GB of f32 weights, gradients and moments) at the hybrid
+# phase's long shape, past its 2,048-key window, so that the window's tile
+# bound is on the hd-256 backward's path; whisper-small at its decoder's 448
+# positions over the launcher's context of 1,500 frames; xlstm-1.3b (3.65 B
+# parameters, 58.4 GB of state) at B 1 x S 512; moonshot-v1-16b-a3b with its
+# depth cut to 4 layers (3.02 B parameters, 48.4 GB of state: its 48 would
+# need 462 GB), through the step and the gradient check only.  The launcher
+# runs the three uncut kinds once each, in bf16, for TRAIN_KIND_STEPS steps
+# (the step-0 checkpoint into TRAIN_CKPT, removed); each dtype's step is timed
+# over TRAIN_KIND_TIMED steps after TRAIN_KIND_WARM, whose losses must be
+# finite and falling.  The launcher's default learning rate, 1e-3, sends the
+# loss of recurrentgemma-2b, whisper-small and moonshot up past its start in
+# the first steps (the first update is the largest Adam makes, ~lr on every
+# weight); they train at 3e-5 (``--lr``), xlstm-1.3b at the default.
+TRAIN_KINDS = (("recurrentgemma-2b", 1, 4096, None, 3e-5),
+               ("whisper-small", 8, 448, None, 3e-5),
+               ("xlstm-1.3b", 1, 512, None, 1e-3),
+               ("moonshot-v1-16b-a3b", 8, 512, 4, 3e-5))
+TRAIN_KIND_STEPS = 2
+TRAIN_KIND_WARM, TRAIN_KIND_TIMED = 1, 1
 # The restart run's losses against the uninterrupted run's where PyTorch
 # names an operation with no deterministic implementation (else they must
 # be equal): a nondeterministic sum moves a gradient's last bits (~1e-7 of
@@ -1013,6 +1043,10 @@ def check_flash(dtypes):
 def bwd_path_cases():
     """The flash backward's cases: (B, Sq, Skv, H, Hkv, hd, causal,
     window): the train path's geometry (qwen2-0.5b at B 8 x S 512, GQA 7),
+    recurrentgemma-2b's (B 1 x S 4096, 10 query heads over 1 at hd 256,
+    under its 2,048-key window) and at hd 256 a ragged windowed case and a
+    non-causal one, whisper-small's encoder (8 x 1,500 frames, 12 heads of
+    64, non-causal) and cross attention (448 over 1,500 keys),
     non-causal over a ragged Skv (Sq != Skv), a window, GQA 1 at hd 128,
     bottom-right causal over a ragged Skv, a window at hd 128 with ragged
     lengths, the reduced configs' narrow heads (hd 16 and 32: phase
@@ -1021,6 +1055,11 @@ def bwd_path_cases():
     of 10 and 11, and a q_offset < 0 (Sq > Skv: rows that keep no key, so
     every tile is visited)."""
     return [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, True, None),
+            (1, 4096, 4096, 10, 1, 256, True, 2048),
+            (2, 190, 333, 10, 1, 256, True, 100),
+            (1, 300, 500, 10, 1, 256, False, None),
+            (8, 1500, 1500, 12, 12, 64, False, None),
+            (8, 448, 1500, 12, 12, 64, False, None),
             (2, 200, 333, 14, 2, 64, False, None),
             (2, 256, 256, 8, 1, 64, True, 64),
             (2, 300, 300, 4, 4, 128, True, None),
@@ -1309,17 +1348,20 @@ def forward_trace(fn, *args):
 
 
 def hand_launches():
-    """Each hand kernel's launches, and the flash kernel's by head dim
+    """Each hand kernel's launches, the flash kernel's by head dim
     (``flash_attention@hd<hd>``) and by mask (``flash_attention@causal``,
-    ``flash_attention@noncausal``), as its wrapper counts them."""
-    fa = fk.flash_attention_kernel
+    ``flash_attention@noncausal``) and its backward's by head dim
+    (``flash_attention_bwd@hd<hd>``), as the wrappers count them."""
+    fa, fb = fk.flash_attention_kernel, fkb.flash_attention_bwd_kernel
     return {"matmul": mk.matmul_kernel.launches,
             "flash_attention": fa.launches,
-            "flash_attention_bwd": fkb.flash_attention_bwd_kernel.launches,
+            "flash_attention_bwd": fb.launches,
             **{f"flash_attention@hd{hd}": n
                for hd, n in sorted(fa.launches_by_hd.items())},
             **{f"flash_attention@{'causal' if c else 'noncausal'}": n
-               for c, n in sorted(fa.launches_by_causal.items())}}
+               for c, n in sorted(fa.launches_by_causal.items())},
+            **{f"flash_attention_bwd@hd{hd}": n
+               for hd, n in sorted(fb.launches_by_hd.items())}}
 
 
 def reset_launches():
@@ -1328,6 +1370,7 @@ def reset_launches():
     fkb.flash_attention_bwd_kernel.launches = 0
     fk.flash_attention_kernel.launches_by_hd.clear()
     fk.flash_attention_kernel.launches_by_causal.clear()
+    fkb.flash_attention_bwd_kernel.launches_by_hd.clear()
 
 
 def phase_decode(store):
@@ -4135,7 +4178,8 @@ def phase_train(store):
     (``train_step_times``); (c) against PM2Lat's training step
     (``train_prediction``); (d) one step's gradients against the plain
     attention (``train_grad_check``); then (f) the restart run
-    (``train_restart``).  Fails on any check."""
+    (``train_restart``); then every other model kind at full width
+    (``train_kind`` over TRAIN_KINDS).  Fails on any check."""
     t0 = time.perf_counter()
     cfg0 = cfg_registry.get(MODEL)
     out = {"arch": MODEL, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
@@ -4150,9 +4194,61 @@ def phase_train(store):
         out[dname] = rec
     out["restart"] = train_restart()
     emit("train_restart", **out["restart"])
+    out["kinds"] = {kind[0]: train_kind(store, *kind) for kind in TRAIN_KINDS}
+    # one bf16 step's hand launches, each kind's
+    out["launches_by_kind"] = {
+        arch: rec["bfloat16"]["step"]["launches_per_step"]
+        for arch, rec in [(MODEL, out), *out["kinds"].items()]}
     out["seconds"] = time.perf_counter() - t0
-    emit("train", seconds=out["seconds"])
+    emit("train", seconds=out["seconds"],
+         launches_by_kind=out["launches_by_kind"])
     return out
+
+
+def train_kind(store, arch, B, S, depth, lr):
+    """One model kind of TRAIN_KINDS at full width (its depth cut to
+    ``depth`` where given), at (B, S) and learning rate ``lr``: (a)
+    ``launch.train.run`` for TRAIN_KIND_STEPS steps in bf16 where the
+    depth is the config's; then in each dtype (b) the step timed and
+    split (``train_step_times``, warm TRAIN_KIND_WARM, timed
+    TRAIN_KIND_TIMED: its losses finite and falling, two flash forwards
+    and one backward a call ``train_attention_calls`` counts), (c)
+    PM2Lat's training step against it (no bar; none without a ``store``,
+    as ``scripts/flash_bwd_check.py --kinds`` runs it) and, for a kind
+    with attention, (d) the gradients against the plain attention on the
+    card (``train_grad_check``).  Each model is freed before the next is
+    built.  Fails on any check."""
+    t0 = time.perf_counter()
+    cfg0 = cfg_registry.get(arch)
+    if depth is not None:
+        cfg0 = dataclasses.replace(cfg0, n_layers=depth)
+    calls = train_attention_calls(cfg0)
+    n = n_params(cfg0)
+    # f32 weights, gradients and AdamW's two moments: 16 bytes a parameter
+    rec = {"arch": arch, "batch": B, "seq": S, "n_layers": cfg0.n_layers,
+           "depth_cut": depth is not None, "lr": lr, "n_params": n,
+           "state_gb": 16 * n / 1e9}
+    if depth is None:
+        rec["launcher"] = train_launch("bfloat16", arch, B, S,
+                                       TRAIN_KIND_STEPS, lr)
+        emit("train_kind", arch=arch, launcher=rec["launcher"])
+    for dname in DTYPES:
+        cfg = dataclasses.replace(cfg0, compute_dtype=dname)
+        r = {"step": train_step_times(cfg, B, S, TRAIN_KIND_WARM,
+                                      TRAIN_KIND_TIMED, lr)}
+        losses = r["step"]["losses"]
+        r["losses_ok"] = bool(np.isfinite(losses).all()
+                              and losses[-1] < losses[0])
+        if not r["losses_ok"]:
+            raise AssertionError(f"train {arch} {dname}: losses {losses}")
+        if store is not None:
+            r["prediction"] = train_prediction(store, cfg, r["step"], B, S)
+        if calls:
+            r["grads"] = train_grad_check(cfg, B, S)
+        emit("train_kind", arch=arch, dtype=dname, **r)
+        rec[dname] = r
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
 
 
 def phase_dist(train):
@@ -4510,23 +4606,24 @@ def dist_record(recs, dname, ref):
     return rec
 
 
-def train_launch(dname):
+def train_launch(dname, arch=MODEL, B=TRAIN_BATCH, S=TRAIN_SEQ,
+                 steps=TRAIN_STEPS, lr=1e-3):
     """``launch.train.run`` at full width: the losses (finite, the last
     below the first), the step-0 checkpoint (its bytes against the state's
     and its write seconds), then the directory removed."""
     ckpt = TRAIN_CKPT / dname
     shutil.rmtree(ckpt, ignore_errors=True)
     args = train_launcher.parse_args([
-        "--arch", MODEL, "--steps", str(TRAIN_STEPS), "--batch",
-        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--compute-dtype", dname,
-        "--ckpt-dir", str(ckpt), "--ckpt-every", str(TRAIN_STEPS + 1)])
+        "--arch", arch, "--steps", str(steps), "--batch", str(B), "--seq",
+        str(S), "--lr", str(lr), "--compute-dtype", dname, "--ckpt-dir",
+        str(ckpt), "--ckpt-every", str(steps + 1)])
     try:
         res = train_launcher.run(args)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    n = cfg_registry.get(MODEL).param_count()
+    n = n_params(cfg_registry.get(arch))
     state_bytes = 3 * 4 * n + 4          # params, m, v in f32; the step
     ck = res["checkpoints"]
     losses = res["losses"]
@@ -4539,41 +4636,68 @@ def train_launch(dname):
                                    for c in ck]}
     checks = {"finite": bool(np.isfinite(losses).all()),
               "falls": losses[-1] < losses[0],
-              "steps": res["steps"] == list(range(TRAIN_STEPS)),
+              "steps": res["steps"] == list(range(steps)),
               "step0_only": [c["step"] for c in ck] == [0],
               "checkpoint_holds_the_state": all(
                   state_bytes <= c["bytes"] <= 1.01 * state_bytes
                   for c in ck)}
     rec["checks"] = checks
     if not all(checks.values()):
-        raise AssertionError(f"train launcher {dname}: {checks}, losses "
-                             f"{losses}, checkpoints {ck}")
+        raise AssertionError(f"train launcher {arch} {dname}: {checks}, "
+                             f"losses {losses}, checkpoints {ck}")
     return rec
 
 
-def train_model(cfg):
-    """The launcher's model, parameters, optimizer, step and data: seed 0,
-    float32 weights, ``cfg``'s compute dtype."""
+def train_model(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ,
+                steps=TRAIN_WARM + TRAIN_TIMED, lr=1e-3):
+    """The launcher's model, parameters, optimizer (AdamW at ``lr``,
+    warm-up 5 steps) and data: seed 0, float32 weights, ``cfg``'s compute
+    dtype; ``batch_at(i)`` gives step
+    i's batch with the launcher's context (``make_ctx(B)``, the same
+    every step) where the model takes one."""
     model = model_registry.build(cfg, device="cuda", seed=0)
     params = tstep.trainable_params(model)
-    adamw = topt.AdamWConfig(lr=1e-3, warmup_steps=5,
-                             total_steps=TRAIN_WARM + TRAIN_TIMED)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                                  seed=0), device="cuda")
-    return model, params, adamw, data
+    adamw = topt.AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                  global_batch=B, seed=0), device="cuda")
+    ctx = model.make_ctx(B)
+    batch_at = lambda i: data.batch_at(i) if ctx is None \
+        else dict(data.batch_at(i), ctx=ctx)
+    return model, params, adamw, batch_at
 
 
-def train_step_times(cfg):
+def n_params(cfg) -> int:
+    """The parameters of ``cfg``'s model, counted on a meta-device build
+    (``param_count`` is the config's estimate, which misses some blocks'
+    weights: xlstm-1.3b's 3.65 B are 2.59 B there)."""
+    model = model_registry.build(cfg, device="meta", seed=0)
+    return sum(p.numel() for p in model.parameters())
+
+
+def train_attention_calls(cfg) -> int:
+    """Flash calls of one training forward of ``cfg``: one a global or
+    sliding-window attention layer, two a cross-attention layer (its
+    self and its cross attention), one an encoder layer.  Under remat a
+    step runs twice as many forwards and as many backwards."""
+    per_kind = {C.ATTN: 1, C.LOCAL_ATTN: 1, C.CROSS_ATTN: 2}
+    return sum(per_kind.get(k, 0) for k in cfg.layer_kinds) \
+        + (cfg.encoder.n_layers if cfg.encoder is not None else 0)
+
+
+def train_step_times(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ, warm=TRAIN_WARM,
+                     timed_steps=TRAIN_TIMED, lr=1e-3):
     """(b): the launcher's step (``build_train_step``, remat on as
-    ``launch.train`` runs it) timed by CUDA events, median of TRAIN_TIMED
-    after TRAIN_WARM, with its hand-kernel launches; the same steps split
-    into forward, backward and optimizer by events that the step's
-    ``mark`` hook records at its part boundaries, each part's median, and
-    the backward / forward ratio; the bytes of the live parameters, AdamW
-    state and batch (``live_bytes``, which phase ``dryrun`` holds its
-    argument bytes against)."""
-    model, params, adamw, data = train_model(cfg)
+    ``launch.train`` runs it) at (B, S) timed by CUDA events, median of
+    ``timed_steps`` after ``warm``, with its hand-kernel launches, which
+    must be two flash forwards and one backward a call
+    ``train_attention_calls`` counts; the same steps split into forward,
+    backward and optimizer by events that the step's ``mark`` hook
+    records at its part boundaries, each part's median, and the backward
+    / forward ratio; every step's loss; the bytes of the live parameters,
+    AdamW state and batch (``live_bytes``, which phase ``dryrun`` holds
+    its argument bytes against)."""
+    model, params, adamw, batch_at = train_model(cfg, B, S,
+                                                 warm + timed_steps, lr)
     events = {}
 
     def mark(part):
@@ -4586,18 +4710,19 @@ def train_step_times(cfg):
     live = {"params": nbytes(params.values()),
             "moments": nbytes(list(state.m.values()) + list(state.v.values())
                               + [state.step]),
-            "batch": nbytes(data.batch_at(0).values())}
+            "batch": nbytes(batch_at(0).values())}
     parts = {"forward": [], "backward": [], "optimizer": []}
-    whole, launches = [], None
+    whole, losses, launches = [], [], None
     torch.cuda.reset_peak_memory_stats()
-    for i in range(TRAIN_WARM + TRAIN_TIMED):
-        batch = data.batch_at(i)
+    for i in range(warm + timed_steps):
+        batch = batch_at(i)
         torch.cuda.synchronize()
         before = hand_launches()
         mark("start")
         params, state, m = step(params, state, batch)
         torch.cuda.synchronize()
-        if i >= TRAIN_WARM:
+        losses.append(float(m["loss"]))
+        if i >= warm:
             whole.append(events["start"].elapsed_time(events["optimizer"]))
             prev = "start"
             for key in parts:
@@ -4613,26 +4738,26 @@ def train_step_times(cfg):
            "launches_per_step": launches, "remat": True,
            "live_bytes": live,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "final_loss": float(m["loss"])}
-    del model, params, state, step
+           "final_loss": losses[-1], "losses": losses}
+    del model, params, state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
-    if launches.get("flash_attention") != 2 * cfg.n_layers \
-            or launches.get("flash_attention_bwd") != cfg.n_layers:
+    calls = train_attention_calls(cfg)
+    if launches.get("flash_attention", 0) != 2 * calls \
+            or launches.get("flash_attention_bwd", 0) != calls:
         raise AssertionError(f"one training step launched {launches}; "
-                             f"expected {2 * cfg.n_layers} flash forwards "
-                             f"(remat runs each again) and {cfg.n_layers} "
-                             f"backwards")
+                             f"expected {2 * calls} flash forwards (remat "
+                             f"runs each again) and {calls} backwards")
     return rec
 
 
-def train_prediction(store, cfg, measured):
-    """(c): ``PM2Lat.schedule_step`` at the train shape with the default
+def train_prediction(store, cfg, measured, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    """(c): ``PM2Lat.schedule_step`` at (B, S) with the default
     ``TrainingStepSpec`` (backward 2.0 x forward, AdamW as one memory op),
     its forward / backward / optimizer split (row names: ``bwd.*``,
     ``opt.*``, the rest forward) against the measured parts."""
     pm = PM2Lat(store, store.meta["device"])
-    sch = pm.schedule_step(cfg, TRAIN_BATCH, TRAIN_SEQ,
+    sch = pm.schedule_step(cfg, B, S,
                            train=sched.TrainingStepSpec(),
                            dtype=cfg.compute_dtype)
     split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
@@ -4671,20 +4796,68 @@ class PlainAttentionOnCard:
         fk.flash_attention_kernel, fkb.flash_attention_bwd_kernel = self.saved
 
 
-def train_grad_check(cfg):
-    """(d): one step's loss and gradients (``loss_fn`` at batch 0, remat
-    on) through the hand kernels and through the plain attention on the
-    card, each parameter's max |d| / max |g| held to TRAIN_GRAD_TOL."""
-    model, params, _, data = train_model(cfg)
-    batch = data.batch_at(0)
-    out = []
+class SameRouting:
+    """Within the block, the MoE layers of ``model`` record the experts
+    each call of ``moe_mod._top_k`` chooses (``chosen`` None), or choose
+    the ones recorded in ``chosen`` (gates: the caller's own probabilities
+    of those experts, renormalised) and count in ``differ`` the (token,
+    call) whose own top-k would have been other experts.  A forward
+    pre-hook on each ``blk.moe`` names the layer; under remat a layer
+    routes twice a step on the same input, so its first call's record
+    serves both."""
+
+    def __init__(self, model, chosen=None):
+        self.model, self.replay = model, chosen is not None
+        self.chosen = {} if chosen is None else chosen
+        self.differ = 0
+
+    def top_k(self, probs, moe):
+        gates, own = self.orig(probs, moe)
+        if not self.replay:
+            self.chosen.setdefault(self.layer, own)
+            return gates, own
+        want = self.chosen[self.layer]
+        self.differ += int((own.sort(-1).values != want.sort(-1).values)
+                           .any(-1).sum())
+        return moe_mod._renormalise(probs.gather(-1, want)), want
+
+    def __enter__(self):
+        self.handles = [blk.moe.register_forward_pre_hook(
+            lambda mod, args, i=i: setattr(self, "layer", i))
+            for i, blk in enumerate(self.model.blocks)
+            if blk.moe is not None]
+        self.orig, moe_mod._top_k = moe_mod._top_k, self.top_k
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._top_k = self.orig
+        for h in self.handles:
+            h.remove()
+
+
+def train_grad_check(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ):
+    """(d): one step's loss and gradients (``loss_fn`` at batch 0 of (B,
+    S), remat on) through the hand kernels and through the plain attention
+    on the card, each parameter's max |d| / max |g| held to
+    TRAIN_GRAD_TOL; the hand pass launches one backward a call
+    ``train_attention_calls`` counts, the plain pass none.  An MoE
+    model's plain pass routes every token to the experts the hand pass
+    chose (``SameRouting``): top-k is discrete, and the two attentions'
+    outputs, ~2^-8 apart in bf16, flip near-tied choices and with them
+    the capacity's drops, which move the router's and experts' gradients
+    by up to 0.20 of their largest (measured on one H100); the flips are
+    counted (``routing_differs``)."""
+    model, params, _, batch_at = train_model(cfg, B, S)
+    batch = batch_at(0)
+    out, routing = [], None
     for plain in (False, True):
         before = hand_launches()
-        if plain:
-            with PlainAttentionOnCard():
-                loss, _ = tobj.loss_fn(model, batch, remat=True)
-                grads = torch.autograd.grad(loss, list(params.values()))
-        else:
+        with contextlib.ExitStack() as stack:
+            if cfg.moe is not None:
+                routing = stack.enter_context(SameRouting(
+                    model, routing.chosen if plain else None))
+            if plain:
+                stack.enter_context(PlainAttentionOnCard())
             loss, _ = tobj.loss_fn(model, batch, remat=True)
             grads = torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
@@ -4703,11 +4876,14 @@ def train_grad_check(cfg):
                                            key=lambda kv: -kv[1])[:12]),
            "tol": TRAIN_GRAD_TOL[cfg.compute_dtype], "over_tol": bad,
            "bwd_launches": [n_hand, n_plain]}
-    del model, params, g_hand, g_plain, out
+    if routing is not None:
+        rec["routing_differs"] = routing.differ
+    del model, params, g_hand, g_plain, out, batch, routing
     gc.collect()
     torch.cuda.empty_cache()
-    if bad or n_plain or n_hand != cfg.n_layers:
-        raise AssertionError(f"train gradients {cfg.compute_dtype}: {rec}")
+    if bad or n_plain or n_hand != train_attention_calls(cfg):
+        raise AssertionError(f"train gradients {cfg.name} "
+                             f"{cfg.compute_dtype}: {rec}")
     return rec
 
 
@@ -4791,7 +4967,7 @@ def device_ms_faults(lines):
     return bad
 
 
-def kernel_lines(by_path, mm_pick):
+def kernel_lines(by_path, mm_pick, launches_by_kind):
     """Each hand kernel in bf16 at the main path's shapes: its time (and
     each config's), its own device time, its plain version's time, one
     PyTorch call's (a yardstick only), and the card's bound.  The matmul is
@@ -4809,9 +4985,10 @@ def kernel_lines(by_path, mm_pick):
     and the hd-128 launches on each path; its ``paper`` the same for the
     paper path's narrow heads at PAPER_TIMED (PAPER_TIMED_ARCHS: hd 32,
     qwen3-mini's 8 over 4; hd 16, a reduced config's 4 over 4), causal,
-    and the hd-32 and hd-16 launches on each path.  ``by_path``: each path's
-    ``hand_launches``; ``launches`` is the main path's.  Every number here
-    is measured, but ``bound_ms``."""
+    and the hd-32 and hd-16 launches on each path; the backward's line is
+    ``bwd_line``'s (``launches_by_kind``: phase ``train``'s).  ``by_path``:
+    each path's ``hand_launches``; ``launches`` is the main path's.  Every
+    number here is measured, but ``bound_ms``."""
     launches = by_path["main"]
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf, f32 = torch.bfloat16, torch.float32
@@ -5007,7 +5184,7 @@ def kernel_lines(by_path, mm_pick):
                 for hd in (16, 32)} for p, n in by_path.items()},
             "cases": [flash_case(arch, *PAPER_TIMED, PAPER_TIMED[1], dt, True)
                       for arch in PAPER_TIMED_ARCHS for dt in (bf, f32)]}})
-    lines.append(bwd_line(gen, by_path))
+    lines.append(bwd_line(gen, by_path, launches_by_kind))
     for line in lines:
         line["launches_by_path"] = {p: n[line["name"]]
                                     for p, n in by_path.items()}
@@ -5029,79 +5206,111 @@ def kernel_lines(by_path, mm_pick):
     return lines
 
 
-def bwd_line(gen, by_path):
+def bwd_line(gen, by_path, launches_by_kind):
     """The flash backward at the train path's attention (qwen2-0.5b, B 8 x
     S 512, 14 heads over 2 at hd 64, causal), bf16 and, under
-    ``float32``, float32: its time against its plain version's and SDPA's
-    backward (one call of the backward node of
-    ``scaled_dot_product_attention`` over KV heads repeated to the query
-    heads: a yardstick only, never on the path; its forward runs on a side
-    stream, where its backward is captured for ``library_device_ms``), and
-    SDPA's gradients against the
-    same plain version (``library_max_rel_err``, the group's repeated KV
-    heads summed in f32).  Bound: the five products over the pairs the
-    causal mask keeps (10 hd flops a pair and head) and q, k, v, o, dO,
-    dQ, dK, dV and lse moved once."""
-    case = bwd_path_cases()[0]
-    B, S, _, H, Hkv, hd, causal, _ = case
-    pairs = S * (S + 1) / 2
-    out = {}
-    for dt in (torch.bfloat16, torch.float32):
-        dname = str(dt).split(".")[1]
-        args, _, kw = bwd_inputs(case, dt, gen)
-        run = lambda *a: fkb.flash_attention_bwd_kernel(*a, **kw)
-        plain = lambda *a: fkb.flash_attention_bwd_plain(*a, **kw)
-        got, want = run(*args), plain(*args)
-        errs = [rel_max(g, w) for g, w in zip(got, want)]
-        abs_err = max(float((g.float() - w.float()).abs().max())
-                      for g, w in zip(got, want))
-        del got
-        esize = args[0].element_size()
-        nbytes = esize * 4 * (B * S * H * hd + B * S * Hkv * hd) \
-            + 4 * B * H * S
-        bms, by = bound(nbytes, 10.0 * B * H * hd * pairs, dname)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            q, k, v = (x.repeat_interleave(H // x.shape[2], dim=2)
-                       .transpose(1, 2).contiguous().requires_grad_()
-                       for x in args[:3])
-            o = torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True)
-            do = args[5].transpose(1, 2).contiguous()
-            # SDPA's backward node called on this thread: one PyTorch call
-            # into the library's backward (cuDNN's in bf16, the efficient
-            # kernel's in float32), without the autograd engine's thread
-            # hop, which set the pace of ``torch.autograd.grad`` here
-            sdpa_bwd = lambda: o.grad_fn(do)[:3]
-            gq, gk, gv = sdpa_bwd()
-            grouped = lambda g: g.transpose(1, 2).float().reshape(
-                B, S, Hkv, H // Hkv, hd).sum(3)
-            lib_errs = [rel_max(g, w) for g, w in
-                        zip((gq.transpose(1, 2), grouped(gk), grouped(gv)),
-                            want)]
-            del gq, gk, gv
-        lib = timed(sdpa_bwd, stream=side)
-        torch.cuda.current_stream().wait_stream(side)
-        out[dname] = {"max_rel_err": max(errs), "ok": all(
-                          e <= BWD_TOL[dname] for e in errs),
-                      "max_abs_err": abs_err,
-                      **timed(run, *args),
-                      "plain_ms": profiler.measure(plain, *args) * 1e3,
-                      "bound_ms": bms, "bound_by": by,
-                      "library_ms": lib["ms"],
-                      "library_device_ms": lib["device_ms"],
-                      "library_host_ms": lib["host_ms"],
-                      "library_max_rel_err": max(lib_errs)}
-        del q, k, v, o, do, want
+    ``float32``, float32 (``bwd_case``); its ``hd256`` the same at
+    recurrentgemma-2b's train shape (``bwd_path_cases()[1]``: B 1 x S
+    4096, 10 heads over 1 at hd 256, causal under its 2,048-key window)
+    and the hd-256 launches on each path; ``launches_by_kind``: one bf16
+    training step's hand launches by model kind (phase ``train``)."""
+    rows = {}
+    for case in bwd_path_cases()[:2]:
+        rows[case] = {str(dt).split(".")[1]: bwd_case(case, dt, gen)
+                      for dt in (torch.bfloat16, torch.float32)}
+    main, wide = rows.values()
+    B, S, _, H, Hkv, hd, _, _ = bwd_path_cases()[0]
+    _, S2, _, H2, Hkv2, hd2, _, window = bwd_path_cases()[1]
     line = {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/models/attention.py:133",
             "launches": by_path["train"]["flash_attention_bwd"],
             "shape": [B, S, H, Hkv, hd], "dtype": "bfloat16",
-            **out["bfloat16"], "float32": out["float32"],
+            **main["bfloat16"], "float32": main["float32"],
+            "hd256": {"launches_by_path": {
+                p: n.get("flash_attention_bwd@hd256", 0)
+                for p, n in by_path.items()},
+                "shape": [1, S2, H2, Hkv2, hd2], "window": window, **wide},
+            "launches_by_kind": launches_by_kind,
             "tolerance": "max |d| / max |plain| per gradient, BWD_TOL"}
+    if not all(row["ok"] for row in wide.values()):
+        raise AssertionError(f"flash backward at hd 256: max errs "
+                             f"{[row['max_rel_err'] for row in wide.values()]}")
     return line
+
+
+def bwd_case(case, dt, gen):
+    """The backward at ``case`` (a causal square, or non-causal) in
+    ``dt``: its time against its plain version's and SDPA's backward (one
+    call of the backward node of ``scaled_dot_product_attention`` over KV
+    heads repeated to the query heads, a window passed as a boolean mask:
+    a yardstick only, never on the path; ``library_backend`` names the
+    node, hence the backend PyTorch picked; its forward runs on a side
+    stream, where its backward is captured for ``library_device_ms``), and
+    SDPA's gradients against the same plain version
+    (``library_max_rel_err``, the group's repeated KV heads summed in
+    f32).  Bound: the five products over the pairs the mask keeps (10 hd
+    flops a pair and head) and q, k, v, o, dO, dQ, dK, dV and lse moved
+    once."""
+    B, S, Skv, H, Hkv, hd, causal, window = case
+    dname = str(dt).split(".")[1]
+    pairs = window_pairs(S, window or S) if causal else S * Skv
+    args, _, kw = bwd_inputs(case, dt, gen)
+    run = lambda *a: fkb.flash_attention_bwd_kernel(*a, **kw)
+    plain = lambda *a: fkb.flash_attention_bwd_plain(*a, **kw)
+    got, want = run(*args), plain(*args)
+    errs = [rel_max(g, w) for g, w in zip(got, want)]
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    del got
+    esize = args[0].element_size()
+    nbytes = esize * 4 * (B * S * H * hd + B * Skv * Hkv * hd) \
+        + 4 * B * H * S
+    bms, by = bound(nbytes, 10.0 * B * H * hd * pairs, dname)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        q, k, v = (x.repeat_interleave(H // x.shape[2], dim=2)
+                   .transpose(1, 2).contiguous().requires_grad_()
+                   for x in args[:3])
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window is None:
+            o = sdpa(q, k, v, is_causal=causal)
+        else:
+            pos = torch.arange(S, device="cuda")
+            d = pos[:, None] - pos[None, :]
+            o = sdpa(q, k, v, attn_mask=(d >= 0) & (d < window))
+        do = args[5].transpose(1, 2).contiguous()
+        backend = type(o.grad_fn).__name__
+        # SDPA's backward node called on this thread: one PyTorch call
+        # into the library's backward, without the autograd engine's
+        # thread hop, which set the pace of ``torch.autograd.grad`` here;
+        # a forward PyTorch ran in plain operations has no such node
+        if backend.startswith("ScaledDotProduct"):
+            sdpa_bwd = lambda: o.grad_fn(do)[:3]
+        else:
+            sdpa_bwd = lambda: torch.autograd.grad(o, (q, k, v), do,
+                                                   retain_graph=True)
+        gq, gk, gv = sdpa_bwd()
+        grouped = lambda g: g.transpose(1, 2).float().reshape(
+            B, Skv, Hkv, H // Hkv, hd).sum(3)
+        lib_errs = [rel_max(g, w) for g, w in
+                    zip((gq.transpose(1, 2), grouped(gk), grouped(gv)),
+                        want)]
+        del gq, gk, gv
+    lib = timed(sdpa_bwd, stream=side)
+    torch.cuda.current_stream().wait_stream(side)
+    row = {"max_rel_err": max(errs), "ok": all(
+               e <= BWD_TOL[dname] for e in errs),
+           "max_abs_err": abs_err, **timed(run, *args),
+           "plain_ms": profiler.measure(plain, *args) * 1e3,
+           "bound_ms": bms, "bound_by": by, "library_ms": lib["ms"],
+           "library_device_ms": lib["device_ms"],
+           "library_host_ms": lib["host_ms"],
+           "library_backend": backend,
+           "library_max_rel_err": max(lib_errs)}
+    del q, k, v, o, do, want, args
+    return row
 
 
 def encdec_timed():
@@ -5288,7 +5497,7 @@ def main() -> int:
     m, n, _ = MM_SHAPE
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
         "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
-    kernels = kernel_lines(by_path, mm_pick)
+    kernels = kernel_lines(by_path, mm_pick, train["launches_by_kind"])
     floors = matmul_floors(next(x for x in kernels
                                 if x["name"] == "matmul")["float32"])
     emit("matmul_floors", rows=floors)

@@ -4,6 +4,7 @@
     python3 scripts/flash_bwd_check.py --time           # the times only
     python3 scripts/flash_bwd_check.py --time --src DIR # another tree's
     python3 scripts/flash_bwd_check.py --train [--src DIR]
+    python3 scripts/flash_bwd_check.py --kinds [ARCH ...]
     python3 scripts/flash_bwd_check.py --profile [--src DIR]
 
 Without ``--time``: ``chip_smoke.py``'s build phase (registers, spills,
@@ -13,10 +14,15 @@ version, and a second launch bit-equal to the first).  Then the
 ``kernels`` line's backward row (``chip_smoke.bwd_line``): the kernel's
 ``ms`` and ``device_ms``, the plain version's and SDPA's backward at the
 train path's attention (qwen2-0.5b, B 8 x S 512, 14/2 heads of 64,
-causal), bf16 and float32.  ``--train``: instead, phase ``train``'s step
-(``chip_smoke.train_step_times``: qwen2-0.5b at full width, B 8 x S 512,
-remat on, split into forward, backward and optimizer) in float32 and
-bf16.  ``--profile``: instead, each of the backward's kernels' device
+causal) and at recurrentgemma-2b's (B 1 x S 4096, 10/1 heads of 256,
+window 2,048), bf16 and float32.  ``--train``: instead, phase ``train``'s
+step (``chip_smoke.train_step_times``: qwen2-0.5b at full width, B 8 x S
+512, remat on, split into forward, backward and optimizer) in float32 and
+bf16.  ``--kinds``: instead, phase ``train``'s records of the other model
+kinds (``chip_smoke.train_kind`` over ``TRAIN_KINDS``, or the archs named,
+in that order; a kind that fails is reported and the next one runs),
+without PM2Lat's prediction (no calibrated store).
+``--profile``: instead, each of the backward's kernels' device
 time a call at that attention (``torch.profiler`` over 20 calls, after a
 warm-up), in both types.  ``--src`` takes ``repro_torch`` from another
 checkout's ``src`` (an older commit unpacked with ``git archive`` into a
@@ -40,6 +46,9 @@ def main() -> int:
                     help="time the backward only (no build report, no checks)")
     ap.add_argument("--train", action="store_true",
                     help="time the training step only")
+    ap.add_argument("--kinds", nargs="*", default=None,
+                    help="phase train's other model kinds only (all, or "
+                         "the archs named)")
     ap.add_argument("--profile", action="store_true",
                     help="each kernel's device time a call only")
     ap.add_argument("--src", help="the src directory of another checkout")
@@ -66,6 +75,18 @@ def main() -> int:
             print(json.dumps({"train_step": dname,
                               **cs.train_step_times(cfg)}), flush=True)
         return 0
+    if args.kinds is not None:
+        shapes = {k[0]: k[1:] for k in cs.TRAIN_KINDS}
+        failed = []
+        for arch in args.kinds or list(shapes):
+            try:
+                rec = cs.train_kind(None, arch, *shapes[arch])
+                print(json.dumps({"train_kind": arch, **rec}), flush=True)
+            except Exception as exc:       # report it, go on with the next
+                failed.append(arch)
+                print(json.dumps({"train_kind": arch, "error": repr(exc)}),
+                      flush=True)
+        return 1 if failed else 0
     if args.profile:
         gen = torch.Generator(device="cuda").manual_seed(2)
         for dt in (torch.bfloat16, torch.float32):
@@ -88,7 +109,7 @@ def main() -> int:
                           "rows": rows}), flush=True)
     cs.fkb.flash_attention_bwd_kernel.launches = 0
     gen = torch.Generator(device="cuda").manual_seed(2)
-    line = cs.bwd_line(gen, {"train": {"flash_attention_bwd": 0}})
+    line = cs.bwd_line(gen, {"train": {"flash_attention_bwd": 0}}, {})
     print(json.dumps({"bwd_line": line}), flush=True)
     return 0
 

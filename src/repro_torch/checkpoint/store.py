@@ -23,12 +23,16 @@ barrier, and ``restore`` gives each rank its own chunk of every DTensor.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue
 import shutil
 import threading
 import time
+import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -66,6 +70,42 @@ def _to_numpy(t: torch.Tensor):
         return t.view(torch.int16).numpy().view(_BITS[t.dtype]), \
             str(t.dtype).replace("torch.", "")
     return t.numpy(), str(t.dtype).replace("torch.", "")
+
+
+def _save_npz(path: str, arrays: Dict[str, np.ndarray]):
+    """``np.savez``'s file: a stored zip64 of ``<key>.npy`` entries, each
+    with the header and bytes ``np.save`` gives it (a Fortran-ordered
+    array as its transpose's bytes).  The entries' CRCs are summed on a
+    thread per core (zlib releases the GIL) ahead of the writes, and each
+    array goes out from its own memory.  ``np.savez`` sums them on one
+    thread and copies every 16 MB twice holding the GIL, ~1 GB/s, while a
+    training step's Python beside the writer thread waits on the GIL."""
+    fmt = np.lib.format
+    entries = []
+    for key, a in arrays.items():
+        if not (a.flags.c_contiguous or a.flags.f_contiguous):
+            a = a.copy()
+        head = io.BytesIO()
+        fmt.write_array_header_1_0(head, fmt.header_data_from_array_1_0(a))
+        data = a if a.flags.c_contiguous else a.T
+        entries.append((key + ".npy", head.getvalue(),
+                        memoryview(data.reshape(-1)).cast("B")))
+    crc = lambda e: zlib.crc32(e[2], zlib.crc32(e[1]))
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool, \
+            zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                            allowZip64=True) as zf:
+        for (name, head, data), c in zip(entries, pool.map(crc, entries)):
+            info = zipfile.ZipInfo(name, time.localtime()[:6])
+            info.external_attr = 0o600 << 16          # as ZipFile.open's
+            info.file_size = info.compress_size = len(head) + len(data)
+            info.CRC = c
+            info.header_offset = zf.fp.tell()
+            zf.fp.write(info.FileHeader(zip64=True))
+            zf.fp.write(head)
+            zf.fp.write(data)
+            zf.filelist.append(info)
+            zf.NameToInfo[name] = info
+        zf.start_dir = zf.fp.tell()     # the central directory goes here
 
 
 def _flatten(state) -> Dict[str, Tuple[np.ndarray, str]]:
@@ -122,6 +162,9 @@ class CheckpointStore:
             except Exception as e:      # raised again by wait()
                 self._errors.append(e)
             finally:
+                # the host copy goes once written: the thread lives on,
+                # waiting for the next write (or, the run over, none)
+                del arrays
                 self._q.task_done()
 
     def _write(self, step: int, arrays):
@@ -131,8 +174,8 @@ class CheckpointStore:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "leaves.npz"),
-                 **{k: a for k, (a, _) in arrays.items()})
+        _save_npz(os.path.join(tmp, "leaves.npz"),
+                  {k: a for k, (a, _) in arrays.items()})
         meta = {"step": step,
                 "dtypes": {k: dt for k, (_, dt) in arrays.items()},
                 "shapes": {k: list(a.shape) for k, (a, _) in arrays.items()}}

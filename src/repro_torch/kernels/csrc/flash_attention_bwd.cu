@@ -79,6 +79,19 @@
 // P and dS share one staging tile in turn.  Up to hd 64 a block fits
 // 128 registers a thread and 106 KB of shared memory: two blocks an SM.
 //
+// hd 256 (recurrentgemma-2b's local attention): one warpgroup cannot hold
+// dK and dV (256 f32 registers a thread before S^T and dP^T), and the
+// float32 kernels' five [64][260] tiles are 351 KB.  So each tile kernel
+// runs two blocks a tile (grid z), each owning half the gradient's columns
+// and computing the scores over the whole head itself: the bf16 blocks keep
+// hd 128's accumulators (64 + 64 registers) beside the full [64][256] tiles
+// (199 KB at two stages, one block an SM) and run dV, dK and dQ as n128
+// wgmmas on their half; the float32 blocks (dkdv_ffma_wide, dq_ffma_wide)
+// sum the scores over 64-column chunks of K, V, Q and dO copied in turn and
+// keep only their half of the gradient's other operand (155 and 121 KB).
+// Each half's block recomputes S and dP: the dK/dV kernel does six
+// products' worth a tile, the dQ kernel five (visited_work).
+//
 // What bounds it on the H100 (qwen2-0.5b at B 8, S 512, 14 query and 2 KV
 // heads at hd 64, causal): the five products over the pairs the mask keeps
 // are 10 hd flops a pair and head, 9.4 GFLOP: 0.0095 ms at 989 TFLOP/s of
@@ -262,11 +275,19 @@ struct BwdWgmma {
   static constexpr int LDB = TILE * 8;             // bytes of 64 rows' (lse, D)
   static constexpr int ST = 2;                     // ring stages
   static constexpr int THREADS = 128;
+  // gradient columns a block owns: the whole head up to hd 128; at hd 256
+  // half of it (NH = 2 blocks a tile, each with hd 128's 64 + 64 f32
+  // accumulators a thread, each computing the scores over the whole head)
+  static constexpr int NH = HD > 128 ? 2 : 1;
+  static constexpr int N = HD / NH;
+  // bytes from a [64][HD] tile's start to column N (whole chunks)
+  static constexpr uint32_t HALF_BYTES = (N / CH) * TILE * CH * 2;
   // 1024 bytes of slack to align the tiles, 256 for the barriers.
   // dK/dV: K, V; per stage Q, dO and (lse, D).  dQ: Q, dO; per stage K, V.
   static constexpr size_t SMEM_DKDV = 1024 + (size_t)(2 + 2 * ST) * TB + ST * LDB + 256;
   static constexpr size_t SMEM_DQ = 1024 + (size_t)(2 + 2 * ST) * TB + 256;
-  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128, "bad head dim");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128 || HD == 256,
+                "bad head dim");
 };
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -289,16 +310,17 @@ __device__ __forceinline__ void wgmma_scores(float* acc, uint32_t a, uint32_t b)
   }
 }
 
-// acc[64 x HD] += A B over 64 rows: A the bf16 fragments a[4][4] (the
-// accumulator layout of a 64 x 64 score tile), B the [64][HD] tile at b
-// read MN-major.  Issued, not waited for.
+// acc[64 x N] += A B over 64 rows: A the bf16 fragments a[4][4] (the
+// accumulator layout of a 64 x 64 score tile), B the N columns of a
+// [64][HD] tile at b (a column half's start, HALF_BYTES apart) read MN-major.
+// Issued, not waited for.
 template <int HD>
 __device__ __forceinline__ void wgmma_grad(float* acc, const uint32_t (&a)[4][4],
                                            uint32_t b) {
   using S = BwdWgmma<HD>;
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    hopper::wgmma_rs<HD, 1>(acc, a[kk],
+    hopper::wgmma_rs<S::N, 1>(acc, a[kk],
                             hopper::make_desc<S::SW>(b + kk * 16 * S::CH * 2,
                                                      TILE * S::CH * 2, 8 * S::CH * 2));
 }
@@ -315,8 +337,9 @@ __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, u
 }
 
 // dK and dV of 64 keys (KV tile blockIdx.y) of one (batch, query head
-// blockIdx.x), over the Q tiles tile_span gives: f32 partials into part
-// (dK) and part + n_part (dV), or bf16 into dk, dv where part is null.
+// blockIdx.x), columns [N blockIdx.z, N blockIdx.z + N), over the Q tiles
+// tile_span gives: f32 partials into part (dK) and part + n_part (dV), or
+// bf16 into dk, dv where part is null.
 template <int HD>
 __global__ void __launch_bounds__(BwdWgmma<HD>::THREADS)
 fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -347,6 +370,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int j = blockIdx.y, k0 = j * TILE;
+  const int half = blockIdx.z, c0 = half * S::N;
   const int Sq64 = (Sq + TILE - 1) / TILE * TILE;
   const Span sp = tile_span(j, 0, Sq, Skv, causal, window, q_offset);
   const int n = sp.hi - sp.lo;
@@ -378,9 +402,9 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   const int w = (tid % 128) / 32, l = tid % 32;
   const int key0 = 16 * w + l / 4;         // this thread's keys key0, key0 + 8
-  float dka[HD / 2], dva[HD / 2];
+  float dka[S::N / 2], dva[S::N / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < S::N / 2; ++i) dka[i] = dva[i] = 0.f;
   if (n > 0) mbar_wait(kvfull, 0);
   const uint32_t k_base = smem_u32(sk), v_base = smem_u32(sv);
 
@@ -431,16 +455,16 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       dsa[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dV += P^T dO, dK += dS^T Q.
-    fence_regs<HD / 2>(dva);
-    fence_regs<HD / 2>(dka);
+    // dV += P^T dO, dK += dS^T Q (this block's columns of dO and Q).
+    fence_regs<S::N / 2>(dva);
+    fence_regs<S::N / 2>(dka);
     wgmma_fence();
-    wgmma_grad<HD>(dva, pa, do_base);
-    wgmma_grad<HD>(dka, dsa, q_base);
+    wgmma_grad<HD>(dva, pa, do_base + half * S::HALF_BYTES);
+    wgmma_grad<HD>(dka, dsa, q_base + half * S::HALF_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(dva);
-    fence_regs<HD / 2>(dka);
+    fence_regs<S::N / 2>(dva);
+    fence_regs<S::N / 2>(dka);
     mbar_arrive(empty(s));
     // refill this stage once every thread is done with it
     if (tid == 0 && it + S::ST < n) {
@@ -449,7 +473,7 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   }
 
-  // d[4jj + 2hh + {0, 1}]: key key0 + 8 hh, columns 8 jj + 2 (l % 4) + {0, 1}.
+  // d[4jj + 2hh + {0, 1}]: key key0 + 8 hh, columns c0 + 8 jj + 2 (l % 4) + {0, 1}.
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int key = k0 + key0 + 8 * hh;
@@ -457,8 +481,8 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (part != nullptr) {
       float* pk = part + (((size_t)b * Skv + key) * H + h) * HD;
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj) {
-        const int col = 8 * jj + 2 * (l % 4);
+      for (int jj = 0; jj < S::N / 8; ++jj) {
+        const int col = c0 + 8 * jj + 2 * (l % 4);
         *reinterpret_cast<float2*>(pk + col) =
             make_float2(dka[4 * jj + 2 * hh], dka[4 * jj + 2 * hh + 1]);
         *reinterpret_cast<float2*>(pk + n_part + col) =
@@ -467,8 +491,8 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     } else {
       const size_t row = (((size_t)b * Skv + key) * Hkv + hk) * HD;
 #pragma unroll
-      for (int jj = 0; jj < HD / 8; ++jj) {
-        const int col = 8 * jj + 2 * (l % 4);
+      for (int jj = 0; jj < S::N / 8; ++jj) {
+        const int col = c0 + 8 * jj + 2 * (l % 4);
         *reinterpret_cast<__nv_bfloat162*>(dk + row + col) =
             __floats2bfloat162_rn(dka[4 * jj + 2 * hh], dka[4 * jj + 2 * hh + 1]);
         *reinterpret_cast<__nv_bfloat162*>(dv + row + col) =
@@ -479,7 +503,8 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // dQ of 64 query rows (Q tile gridDim.y - 1 - blockIdx.y) of one (batch,
-// query head blockIdx.x), over the KV tiles tile_span gives.
+// query head blockIdx.x), columns [N blockIdx.z, N blockIdx.z + N), over
+// the KV tiles tile_span gives.
 template <int HD>
 __global__ void __launch_bounds__(BwdWgmma<HD>::THREADS)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -506,6 +531,7 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
   const int i = gridDim.y - 1 - blockIdx.y, q0 = i * TILE;
+  const int half = blockIdx.z, c0 = half * S::N;
   const int Sq64 = (Sq + TILE - 1) / TILE * TILE;
   const Span sp = tile_span(i, 1, Sq, Skv, causal, window, q_offset);
   const int n = sp.hi - sp.lo;
@@ -538,9 +564,9 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const float* ld = LD + ((size_t)bh * Sq64 + q0 + row0) * 2;
   const float2 ld0 = *reinterpret_cast<const float2*>(ld);
   const float2 ld1 = *reinterpret_cast<const float2*>(ld + 16);
-  float dqa[HD / 2];
+  float dqa[S::N / 2];
 #pragma unroll
-  for (int x = 0; x < HD / 2; ++x) dqa[x] = 0.f;
+  for (int x = 0; x < S::N / 2; ++x) dqa[x] = 0.f;
   if (n > 0) mbar_wait(qfull, 0);
   const uint32_t q_base = smem_u32(sq), do_base = smem_u32(sdo);
 
@@ -586,13 +612,13 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       dsa[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
 
-    // dQ += dS K.
-    fence_regs<HD / 2>(dqa);
+    // dQ += dS K (this block's columns of K).
+    fence_regs<S::N / 2>(dqa);
     wgmma_fence();
-    wgmma_grad<HD>(dqa, dsa, k_base);
+    wgmma_grad<HD>(dqa, dsa, k_base + half * S::HALF_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<HD / 2>(dqa);
+    fence_regs<S::N / 2>(dqa);
     mbar_arrive(empty(s));
     if (tid == 0 && it + S::ST < n) {
       mbar_wait(empty(s), parity);
@@ -606,8 +632,8 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     if (qr >= Sq) continue;
     __nv_bfloat16* row = dq + (((size_t)b * Sq + qr) * H + h) * HD;
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-      const int col = 8 * jj + 2 * (l % 4);
+    for (int jj = 0; jj < S::N / 8; ++jj) {
+      const int col = c0 + 8 * jj + 2 * (l % 4);
       *reinterpret_cast<__nv_bfloat162*>(row + col) =
           __floats2bfloat162_rn(dqa[4 * jj + 2 * hh], dqa[4 * jj + 2 * hh + 1]);
     }
@@ -626,10 +652,24 @@ struct BwdFfma {
   static constexpr int OG = OC / OV;           // and groups, HD / OG apart
   static constexpr int T = TILE * LDT;         // floats of a [64][HD] tile
   static constexpr int SC = TILE * LP;         // floats of a score tile
+  // Past hd 128 (hd 256) five [64][HD] tiles pass 227 KB and the dK and dV
+  // accumulators 128 registers a thread: the wide kernels.  A block owns
+  // GD = HD / 2 gradient columns (two blocks a tile) and sums the scores
+  // over the head in CW-column chunks of K, V, Q and dO copied in turn.
+  static constexpr bool WIDE = HD > 128;
+  static constexpr int NH = WIDE ? 2 : 1;
+  static constexpr int GD = HD / NH;
+  static constexpr int CW = 64;
+  // floats of the four [64][CW + 4] chunk tiles and of a [64][GD + 4] tile
+  static constexpr int CHUNKS = 4 * TILE * (CW + 4), TG = TILE * (GD + 4);
   // dK/dV: K, V, two Q stages, dO, the score tile (P, then dS), (lse, D)
-  // of two Q tiles.  dQ: Q, dO, two K stages, V, dS^T, (lse, D).
-  static constexpr size_t SMEM_DKDV = 4 * (size_t)(5 * T + SC + 2 * 2 * TILE);
-  static constexpr size_t SMEM_DQ = 4 * (size_t)(5 * T + SC + 2 * TILE);
+  // of two Q tiles.  dQ: Q, dO, two K stages, V, dS^T, (lse, D).  Wide:
+  // the chunks; dK/dV's GD columns of Q and dO, dQ's of K; the score
+  // tile; (lse, D) of one Q tile.
+  static constexpr size_t SMEM_DKDV = 4 * (size_t)(WIDE ? CHUNKS + 2 * TG + SC + 2 * TILE
+                                                        : 5 * T + SC + 2 * 2 * TILE);
+  static constexpr size_t SMEM_DQ = 4 * (size_t)(WIDE ? CHUNKS + TG + SC + 2 * TILE
+                                                      : 5 * T + SC + 2 * TILE);
   // two blocks an SM where 128 registers a thread hold the accumulators
   static constexpr int MIN_BLOCKS = HD <= 64 ? 2 : 1;
   static_assert(HD % 16 == 0 && (OC == 1 || OC == 2 || OC % 4 == 0),
@@ -655,16 +695,13 @@ __device__ __forceinline__ void copy_ld(float* dst, const float* src, int tid) {
   if (tid < 2 * TILE / 4) simt::cp_async16(dst + 4 * tid, src + 4 * tid, true);
 }
 
-// acc[r][c] = sum_d A[ty*4 + r][d] * B[tx + 16 c][d] over the HD columns of
-// two [64][LDT] tiles: one of the score products (S = Q K^T, dP = dO V^T).
+// acc[r][c] += sum_d A[ty*4 + r][d] * B[tx + 16 c][d] over the HD columns
+// of two [64][LDT] tiles: one of the score products (S = Q K^T, dP = dO
+// V^T), or a chunk of its columns.
 template <int HD>
-__device__ __forceinline__ void score_tile(float (&acc)[4][4], const float* A,
-                                           const float* Bm, int ty, int tx) {
+__device__ __forceinline__ void score_acc(float (&acc)[4][4], const float* A,
+                                          const float* Bm, int ty, int tx) {
   constexpr int LDT = BwdFfma<HD>::LDT, TX = BwdFfma<HD>::TX;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
   // unrolled twice from hd 64; once below, where ptxas spills at 128
   // registers otherwise (the dK/dV kernel at hd 32)
 #pragma unroll (HD >= 64 ? 2 : 1)
@@ -684,6 +721,21 @@ __device__ __forceinline__ void score_tile(float (&acc)[4][4], const float* A,
         acc[r][c] = fmaf(a[r].w, b[c].w, acc[r][c]);
       }
   }
+}
+
+__device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+}
+
+// acc = the score product over the HD columns (score_acc from zero).
+template <int HD>
+__device__ __forceinline__ void score_tile(float (&acc)[4][4], const float* A,
+                                           const float* Bm, int ty, int tx) {
+  zero_tile(acc);
+  score_acc<HD>(acc, A, Bm, ty, tx);
 }
 
 // P and dS of one 64 x 64 tile (rows ty*4 + r, keys tx + 16 c) from S, dP
@@ -755,12 +807,14 @@ __device__ __forceinline__ void store_rows(float* dst, size_t stride,
 // blockIdx.x) over the Q tiles tile_span gives, into (B, Skv, Hout, HD) at
 // dk and dv (the f32 partials, Hout = H, or the outputs, Hout = Hkv).
 template <int HD>
-__global__ void __launch_bounds__(BwdFfma<HD>::THREADS, BwdFfma<HD>::MIN_BLOCKS)
-fa_bwd_dkdv_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ LD, float* __restrict__ dk,
-                        float* __restrict__ dv, int Hout, int H, int Hkv, int Sq,
-                        int Skv, int causal, int window, int q_offset, float scale) {
+__device__ __forceinline__ void dkdv_ffma(const float* __restrict__ q,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v,
+                                          const float* __restrict__ dout,
+                                          const float* __restrict__ LD, float* __restrict__ dk,
+                                          float* __restrict__ dv, int Hout, int H, int Hkv,
+                                          int Sq, int Skv, int causal, int window,
+                                          int q_offset, float scale) {
   using S = BwdFfma<HD>;
   constexpr int LP = S::LP, OC = S::OC;
   extern __shared__ __align__(16) float smem[];
@@ -842,12 +896,13 @@ fa_bwd_dkdv_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k
 // dQ of 64 query rows (Q tile gridDim.y - 1 - blockIdx.y) of one (batch,
 // query head blockIdx.x) over the KV tiles tile_span gives.
 template <int HD>
-__global__ void __launch_bounds__(BwdFfma<HD>::THREADS, BwdFfma<HD>::MIN_BLOCKS)
-fa_bwd_dq_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ LD, float* __restrict__ dq, int H,
-                      int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
-                      float scale) {
+__device__ __forceinline__ void dq_ffma(const float* __restrict__ q,
+                                        const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ dout,
+                                        const float* __restrict__ LD, float* __restrict__ dq,
+                                        int H, int Hkv, int Sq, int Skv, int causal,
+                                        int window, int q_offset, float scale) {
   using S = BwdFfma<HD>;
   constexpr int LP = S::LP, OC = S::OC;
   extern __shared__ __align__(16) float smem[];
@@ -910,6 +965,204 @@ fa_bwd_dq_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   simt::cp_async_wait<0>();
 
   store_rows<HD>(dq + q_off, q_row, dqa, q0, Sq, ty, tx);
+}
+
+// The wide dK/dV kernel's block: as dkdv_ffma, for columns [c0, c0 + GD)
+// of dK and dV (c0 = GD blockIdx.z).  Per Q tile: the scores over the head,
+// CW columns at a time (K, V, Q and dO chunks copied, waited for, summed);
+// with the first chunk, this block's GD columns of Q and dO and the tile's
+// (lse, D); then P and dS as dkdv_ffma has them, dV += P^T dO and dK +=
+// dS^T Q over those columns.  One copy in flight at a time.
+template <int HD>
+__device__ __forceinline__ void dkdv_ffma_wide(const float* __restrict__ q,
+                                               const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const float* __restrict__ dout,
+                                               const float* __restrict__ LD,
+                                               float* __restrict__ dk, float* __restrict__ dv,
+                                               int Hout, int H, int Hkv, int Sq, int Skv,
+                                               int causal, int window, int q_offset,
+                                               float scale) {
+  using S = BwdFfma<HD>;
+  using Gt = BwdFfma<S::GD>;                 // the GD-column tiles and accumulators
+  constexpr int CW = S::CW, LP = S::LP, OC = Gt::OC, CT = TILE * (CW + 4);
+  extern __shared__ __align__(16) float smem[];
+  float* Kc = smem;
+  float* Vc = Kc + CT;
+  float* Qc = Vc + CT;
+  float* dOc = Qc + CT;
+  float* Qg = smem + S::CHUNKS;              // this block's columns of Q, dO
+  float* dOg = Qg + S::TG;
+  float* Ss = dOg + S::TG;                   // P [query][key], then dS
+  float* lds = Ss + S::SC;
+
+  const int tid = threadIdx.x, tx = tid % S::TX, ty = tid / S::TX;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int j = blockIdx.y, k0 = j * TILE, c0 = blockIdx.z * S::GD;
+  const int Sq64 = (Sq + TILE - 1) / TILE * TILE;
+  const size_t q_row = (size_t)H * HD, kv_row = (size_t)Hkv * HD;
+  const float* qh = q + (size_t)b * Sq * q_row + (size_t)h * HD;
+  const float* doh = dout + (size_t)b * Sq * q_row + (size_t)h * HD;
+  const float* kh = k + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const float* vh = v + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const float* ldh = LD + (size_t)bh * Sq64 * 2;
+  const Span sp = tile_span(j, 0, Sq, Skv, causal, window, q_offset);
+
+  float dka[4][OC], dva[4][OC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) dka[r][c] = dva[r][c] = 0.f;
+
+  for (int t = sp.lo; t < sp.hi; ++t) {
+    const int q0 = t * TILE;
+    float s[4][4], dp[4][4];
+    zero_tile(s);
+    zero_tile(dp);
+    for (int c = 0; c < HD; c += CW) {
+      __syncthreads();               // every thread is done with what is copied over
+      copy_tile<CW>(Kc, kh + c, kv_row, k0, Skv, tid);
+      copy_tile<CW>(Vc, vh + c, kv_row, k0, Skv, tid);
+      copy_tile<CW>(Qc, qh + c, q_row, q0, Sq, tid);
+      copy_tile<CW>(dOc, doh + c, q_row, q0, Sq, tid);
+      if (c == 0) {
+        copy_tile<S::GD>(Qg, qh + c0, q_row, q0, Sq, tid);
+        copy_tile<S::GD>(dOg, doh + c0, q_row, q0, Sq, tid);
+        copy_ld(lds, ldh + (size_t)q0 * 2, tid);
+      }
+      simt::cp_async_commit();
+      simt::cp_async_wait<0>();
+      __syncthreads();
+      score_acc<CW>(s, Qc, Kc, ty, tx);
+      score_acc<CW>(dp, dOc, Vc, ty, tx);
+    }
+    softmax_grad(s, dp, lds, q0, k0, ty, tx, Skv, causal, window, q_offset, scale,
+                 tile_unmasked(q0, k0, Skv, causal, window, q_offset));
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Ss[(ty * 4 + r) * LP + tx + S::TX * c] = s[r][c];
+    __syncthreads();
+    grad_tile<S::GD>(dva, Ss, dOg, ty, tx);  // dV[key][d] += sum_q P[q][key] dO[q][d]
+    __syncthreads();                         // every thread is done with P
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Ss[(ty * 4 + r) * LP + tx + S::TX * c] = dp[r][c];
+    __syncthreads();
+    grad_tile<S::GD>(dka, Ss, Qg, ty, tx);   // dK[key][d] += sum_q dS[q][key] Q[q][d]
+  }
+
+  const size_t out_row = (size_t)Hout * HD;
+  const size_t out_off =
+      (size_t)b * Skv * out_row + (size_t)(Hout == H ? h : hk) * HD + c0;
+  store_rows<S::GD>(dk + out_off, out_row, dka, k0, Skv, ty, tx);
+  store_rows<S::GD>(dv + out_off, out_row, dva, k0, Skv, ty, tx);
+}
+
+// The wide dQ kernel's block: as dq_ffma, for columns [c0, c0 + GD) of dQ.
+// Per KV tile: the scores over the head in CW-column chunks of Q, dO, K
+// and V; with the first chunk, this block's GD columns of K; then dS and
+// dQ += dS K over those columns.
+template <int HD>
+__device__ __forceinline__ void dq_ffma_wide(const float* __restrict__ q,
+                                             const float* __restrict__ k,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ dout,
+                                             const float* __restrict__ LD,
+                                             float* __restrict__ dq, int H, int Hkv, int Sq,
+                                             int Skv, int causal, int window, int q_offset,
+                                             float scale) {
+  using S = BwdFfma<HD>;
+  using Gt = BwdFfma<S::GD>;
+  constexpr int CW = S::CW, LP = S::LP, OC = Gt::OC, CT = TILE * (CW + 4);
+  extern __shared__ __align__(16) float smem[];
+  float* Qc = smem;
+  float* dOc = Qc + CT;
+  float* Kc = dOc + CT;
+  float* Vc = Kc + CT;
+  float* Kg = smem + S::CHUNKS;              // this block's columns of K
+  float* dST = Kg + S::TG;                   // dS^T [key][query]
+  float* lds = dST + S::SC;
+
+  const int tid = threadIdx.x, tx = tid % S::TX, ty = tid / S::TX;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
+  const int i = gridDim.y - 1 - blockIdx.y, q0 = i * TILE, c0 = blockIdx.z * S::GD;
+  const int Sq64 = (Sq + TILE - 1) / TILE * TILE;
+  const size_t q_row = (size_t)H * HD, kv_row = (size_t)Hkv * HD;
+  const size_t q_off = (size_t)b * Sq * q_row + (size_t)h * HD;
+  const float* kh = k + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const float* vh = v + (size_t)b * Skv * kv_row + (size_t)hk * HD;
+  const Span sp = tile_span(i, 1, Sq, Skv, causal, window, q_offset);
+
+  float dqa[4][OC];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) dqa[r][c] = 0.f;
+
+  copy_ld(lds, LD + ((size_t)bh * Sq64 + q0) * 2, tid);
+  simt::cp_async_commit();                   // waited for with the first chunk
+  for (int t = sp.lo; t < sp.hi; ++t) {
+    const int k0 = t * TILE;
+    float s[4][4], dp[4][4];
+    zero_tile(s);
+    zero_tile(dp);
+    for (int c = 0; c < HD; c += CW) {
+      __syncthreads();               // every thread is done with what is copied over
+      copy_tile<CW>(Qc, q + q_off + c, q_row, q0, Sq, tid);
+      copy_tile<CW>(dOc, dout + q_off + c, q_row, q0, Sq, tid);
+      copy_tile<CW>(Kc, kh + c, kv_row, k0, Skv, tid);
+      copy_tile<CW>(Vc, vh + c, kv_row, k0, Skv, tid);
+      if (c == 0) copy_tile<S::GD>(Kg, kh + c0, kv_row, k0, Skv, tid);
+      simt::cp_async_commit();
+      simt::cp_async_wait<0>();
+      __syncthreads();
+      score_acc<CW>(s, Qc, Kc, ty, tx);
+      score_acc<CW>(dp, dOc, Vc, ty, tx);
+    }
+    softmax_grad(s, dp, lds, q0, k0, ty, tx, Skv, causal, window, q_offset, scale,
+                 tile_unmasked(q0, k0, Skv, causal, window, q_offset));
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      simt::st4(dST + (tx + S::TX * c) * LP + ty * 4,
+                make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]));
+    __syncthreads();
+    grad_tile<S::GD>(dqa, dST, Kg, ty, tx);  // dQ[q][d] += sum_key dS[q][key] K[key][d]
+  }
+  simt::cp_async_wait<0>();                  // nothing in flight at exit
+
+  store_rows<S::GD>(dq + q_off + c0, q_row, dqa, q0, Sq, ty, tx);
+}
+
+// The float32 tile kernels: the blocks above, the wide ones past hd 128.
+template <int HD>
+__global__ void __launch_bounds__(BwdFfma<HD>::THREADS, BwdFfma<HD>::MIN_BLOCKS)
+fa_bwd_dkdv_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ dout,
+                        const float* __restrict__ LD, float* __restrict__ dk,
+                        float* __restrict__ dv, int Hout, int H, int Hkv, int Sq,
+                        int Skv, int causal, int window, int q_offset, float scale) {
+  if constexpr (BwdFfma<HD>::WIDE)
+    dkdv_ffma_wide<HD>(q, k, v, dout, LD, dk, dv, Hout, H, Hkv, Sq, Skv, causal, window,
+                       q_offset, scale);
+  else
+    dkdv_ffma<HD>(q, k, v, dout, LD, dk, dv, Hout, H, Hkv, Sq, Skv, causal, window,
+                  q_offset, scale);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BwdFfma<HD>::THREADS, BwdFfma<HD>::MIN_BLOCKS)
+fa_bwd_dq_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ LD, float* __restrict__ dq, int H,
+                      int Hkv, int Sq, int Skv, int causal, int window, int q_offset,
+                      float scale) {
+  if constexpr (BwdFfma<HD>::WIDE)
+    dq_ffma_wide<HD>(q, k, v, dout, LD, dq, H, Hkv, Sq, Skv, causal, window, q_offset,
+                     scale);
+  else
+    dq_ffma<HD>(q, k, v, dout, LD, dq, H, Hkv, Sq, Skv, causal, window, q_offset, scale);
 }
 
 // ---------------------------------------------------------------- launch
@@ -998,13 +1251,15 @@ cudaError_t launch_bf16(const Args& a) {
   if (err != cudaSuccess) return err;
   const int nq = (a.Sq + TILE - 1) / TILE, nk = (a.Skv + TILE - 1) / TILE;
   return run_passes<__nv_bfloat16, HD>(a, [&] {
-    fa_bwd_dkdv_wgmma_kernel<HD><<<dim3(a.B * a.H, nk), S::THREADS, S::SMEM_DKDV, a.stream>>>(
+    fa_bwd_dkdv_wgmma_kernel<HD><<<dim3(a.B * a.H, nk, S::NH), S::THREADS, S::SMEM_DKDV,
+                                   a.stream>>>(
         map_q, map_k, map_v, map_do, a.LD, a.part, (long long)a.B * a.Skv * a.H * HD,
         static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.H, a.Hkv,
         a.Sq, a.Skv, a.causal, a.window, a.q_offset, a.scale);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    fa_bwd_dq_wgmma_kernel<HD><<<dim3(a.B * a.H, nq), S::THREADS, S::SMEM_DQ, a.stream>>>(
+    fa_bwd_dq_wgmma_kernel<HD><<<dim3(a.B * a.H, nq, S::NH), S::THREADS, S::SMEM_DQ,
+                                 a.stream>>>(
         map_q, map_k, map_v, map_do, a.LD, static_cast<__nv_bfloat16*>(a.dq), a.H, a.Hkv,
         a.Sq, a.Skv, a.causal, a.window, a.q_offset, a.scale);
     return cudaGetLastError();
@@ -1026,12 +1281,14 @@ cudaError_t launch_f32(const Args& a) {
   float* dk = grouped ? a.part : static_cast<float*>(a.dk);
   float* dv = grouped ? a.part + (size_t)a.B * a.Skv * a.H * HD : static_cast<float*>(a.dv);
   return run_passes<float, HD>(a, [&] {
-    fa_bwd_dkdv_ffma_kernel<HD><<<dim3(a.B * a.H, nk), S::THREADS, S::SMEM_DKDV, a.stream>>>(
+    fa_bwd_dkdv_ffma_kernel<HD><<<dim3(a.B * a.H, nk, S::NH), S::THREADS, S::SMEM_DKDV,
+                                  a.stream>>>(
         q, k, v, dout, a.LD, dk, dv, grouped ? a.H : a.Hkv, a.H, a.Hkv, a.Sq, a.Skv, a.causal,
         a.window, a.q_offset, a.scale);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    fa_bwd_dq_ffma_kernel<HD><<<dim3(a.B * a.H, nq), S::THREADS, S::SMEM_DQ, a.stream>>>(
+    fa_bwd_dq_ffma_kernel<HD><<<dim3(a.B * a.H, nq, S::NH), S::THREADS, S::SMEM_DQ,
+                                a.stream>>>(
         q, k, v, dout, a.LD, static_cast<float*>(a.dq), a.H, a.Hkv, a.Sq, a.Skv, a.causal,
         a.window, a.q_offset, a.scale);
     return cudaGetLastError();
@@ -1081,10 +1338,12 @@ extern "C" int pm2lat_flash_attention_bwd(int hd, int dtype, const void* q, cons
   PM2LAT_FA_BWD(launch_f32, 0, 32)
   PM2LAT_FA_BWD(launch_f32, 0, 64)
   PM2LAT_FA_BWD(launch_f32, 0, 128)
+  PM2LAT_FA_BWD(launch_f32, 0, 256)
   PM2LAT_FA_BWD(launch_bf16, 1, 16)
   PM2LAT_FA_BWD(launch_bf16, 1, 32)
   PM2LAT_FA_BWD(launch_bf16, 1, 64)
   PM2LAT_FA_BWD(launch_bf16, 1, 128)
+  PM2LAT_FA_BWD(launch_bf16, 1, 256)
 #undef PM2LAT_FA_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -1104,6 +1363,7 @@ extern "C" long long pm2lat_flash_attention_bwd_smem(int hd, int dtype, int kern
   PM2LAT_FA_BWD_SMEM(32)
   PM2LAT_FA_BWD_SMEM(64)
   PM2LAT_FA_BWD_SMEM(128)
+  PM2LAT_FA_BWD_SMEM(256)
 #undef PM2LAT_FA_BWD_SMEM
   return -1;
 }
@@ -1118,6 +1378,7 @@ extern "C" long long pm2lat_flash_attention_bwd_blocks_per_sm(int hd, int dtype,
   if (hd == 32) return occupancy<32>(dtype, kernel);
   if (hd == 64) return occupancy<64>(dtype, kernel);
   if (hd == 128) return occupancy<128>(dtype, kernel);
+  if (hd == 256) return occupancy<256>(dtype, kernel);
   return -1;
 }
 

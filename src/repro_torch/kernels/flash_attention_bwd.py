@@ -13,8 +13,10 @@ GQA group in head order; dQ a block per (64 query rows, batch, query
 head).  Each block visits only the tiles that hold a pair the mask keeps
 (``tile_range``).  bfloat16 runs on the tensor cores (``wgmma`` + TMA, P
 and dS rounded to bf16 as the products' operands, f32 sums); float32 is
-true f32 FFMA with ``cp.async``.  Head dims ``HEAD_DIMS``; any other
-raises.
+true f32 FFMA with ``cp.async``.  At hd 256 each tile kernel runs two
+blocks a tile, each owning half the gradient's columns and computing the
+scores over the whole head (``column_halves``); float32 copies the head in
+64-column chunks there.  Head dims ``HEAD_DIMS``; any other raises.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels import priced
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNELS = ("dkdv", "dq")   # the two tile kernels, in the C getters' order
 AXES = ("q", "kv")         # tile_range's axes, in the C function's order
@@ -70,22 +72,32 @@ def tile_range(t: int, axis: str, Sq: int, Skv: int, *, causal=True,
     return lo, max(lo, hi)
 
 
+def column_halves(hd: int) -> int:
+    """Blocks a tile of each tile kernel: 2 at hd 256 (each owns hd / 2
+    gradient columns and computes the scores over the whole head), else
+    1."""
+    return 2 if hd > 128 else 1
+
+
 def visited_work(B: int, H: int, Sq: int, Skv: int, hd: int, *, causal=True,
                  window: Optional[int] = None, q_offset: int = 0):
     """(flops, exponentials) of one call: the (64-row, 64-key) tiles the
     two tile kernels visit (``tile_range``) for each (batch, query head),
     four products of 2·64·64·hd a tile in the dK/dV kernel (Sᵀ, dPᵀ, dV,
     dK) and three in the dQ kernel (S, dP, dQ), and 64·64 exponentials a
-    tile in each; ragged tails count as whole tiles.  The prep and sum
-    passes do no product and are left out."""
+    tile in each; at hd 256 each of the two column halves' blocks computes
+    Sᵀ and dPᵀ (S and dP) and its exponentials again.  Ragged tails count
+    as whole tiles.  The prep and sum passes do no product and are left
+    out."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     span = lambda t, axis: (lambda lo, hi: hi - lo)(
         *tile_range(t, axis, Sq, Skv, **kw))
     dkdv = sum(span(t, "q") for t in range(-(-Skv // TILE)))
     dq = sum(span(t, "kv") for t in range(-(-Sq // TILE)))
-    tile = float(TILE * TILE)
-    return (B * H * tile * hd * (8.0 * dkdv + 6.0 * dq),
-            B * H * tile * (dkdv + dq))
+    tile, nh = float(TILE * TILE), column_halves(hd)
+    return (B * H * tile * hd * 2.0 * ((2 * nh + 2) * dkdv
+                                       + (2 * nh + 1) * dq),
+            B * H * tile * nh * (dkdv + dq))
 
 
 def smem_bytes(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
@@ -96,12 +108,20 @@ def smem_bytes(hd: int, kernel: str, dtype=torch.bfloat16) -> int:
     ``dkdv``'s two stages of 64 rows' (lse, D) and 256 bytes of barriers.
     float32: five [64][hd + 4] f32 tiles (K, V, two Q stages and dO; Q,
     dO, two K stages and V), one 64 x 68 score tile and (lse, D) of two Q
-    tiles (``dkdv``) or one (``dq``)."""
+    tiles (``dkdv``) or one (``dq``); at hd 256, four [64][68] chunk tiles
+    (K, V, Q, dO), the block's columns of Q and dO (``dkdv``) or of K
+    (``dq``) as [64][hd / 2 + 4] tiles, the score tile and (lse, D) of one
+    Q tile."""
     if dtype == torch.bfloat16:
         return 1024 + 6 * TILE * hd * 2 \
             + (2 * TILE * 8 if kernel == "dkdv" else 0) + 256
+    score = TILE * (TILE + 4)
+    if column_halves(hd) > 1:
+        halves = 2 if kernel == "dkdv" else 1
+        return 4 * (4 * TILE * (64 + 4) + halves * TILE * (hd // 2 + 4)
+                    + score + 2 * TILE)
     ld = (2 if kernel == "dkdv" else 1) * 2 * TILE
-    return 4 * (5 * TILE * (hd + 4) + TILE * (TILE + 4) + ld)
+    return 4 * (5 * TILE * (hd + 4) + score + ld)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True,
@@ -255,7 +275,10 @@ def flash_attention_bwd_kernel(q, k, v, o, lse, do, *, causal=True,
              torch._C._cuda_getCurrentRawStream(q.get_device()))
     build.check(err, lib, "flash_attention_bwd")
     flash_attention_bwd_kernel.launches += 1
+    by_hd = flash_attention_bwd_kernel.launches_by_hd
+    by_hd[hd] = by_hd.get(hd, 0) + 1
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_by_hd = {}   # the launches by head dim

@@ -366,23 +366,31 @@ class Transformer(nn.Module):
                         generator=gen, device=dev)
         return x.to(getattr(torch, self.cfg.compute_dtype))
 
-    def encode(self, ctx_embed: torch.Tensor) -> torch.Tensor:
+    def encode(self, ctx_embed: torch.Tensor, *,
+               remat: bool = False) -> torch.Tensor:
         """The encoder stack over frame embeddings (B, n_frames, d):
         non-causal attention without RoPE, then the encoder's final norm
-        (``encode``)."""
+        (``encode``).  ``remat``: each block checkpointed as
+        ``train_forward``'s decoder blocks are."""
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
         x = ctx_embed
         for blk in self.encoder.blocks:
-            x, _ = blk(x, cfg, cdt)
+            if remat:
+                x, _, _ = checkpoint(
+                    _train_block, blk, x, cfg, cdt, None, None,
+                    use_reentrant=False, context_fn=sh.checkpoint_contexts)
+            else:
+                x, _ = blk(x, cfg, cdt)
         return self.encoder.final_norm(x, cfg.norm_eps)
 
-    def context_for(self, ctx_embed):
+    def context_for(self, ctx_embed, *, remat: bool = False):
         """What the cross-attention layers attend to (``context_for``): the
-        encoder's output over ``ctx_embed``, or ``ctx_embed`` itself (patch
-        embeddings); None for a model that takes no context.  A model that
-        needs one and gets none raises ``ValueError``; one that takes none
-        and gets one raises ``TypeError`` (the JAX package ignores it)."""
+        encoder's output over ``ctx_embed`` (``encode``, with ``remat``),
+        or ``ctx_embed`` itself (patch embeddings); None for a model that
+        takes no context.  A model that needs one and gets none raises
+        ``ValueError``; one that takes none and gets one raises
+        ``TypeError`` (the JAX package ignores it)."""
         if not self.needs_ctx():
             if ctx_embed is not None:
                 raise TypeError(f"{self.cfg.name} takes no context embedding")
@@ -390,8 +398,8 @@ class Transformer(nn.Module):
         if ctx_embed is None:
             raise ValueError(f"{self.cfg.name} needs a context embedding "
                              f"(make_ctx)")
-        return self.encode(ctx_embed) if self.encoder is not None \
-            else ctx_embed
+        return self.encode(ctx_embed, remat=remat) \
+            if self.encoder is not None else ctx_embed
 
     def _head(self):
         return self.unembed if self.unembed is not None else self.embed
@@ -416,13 +424,13 @@ class Transformer(nn.Module):
                 f"{', '.join(map(str, fkb.HEAD_DIMS))}); run it under "
                 f"torch.no_grad()")
 
-    def _inputs(self, tokens, ctx_embed):
+    def _inputs(self, tokens, ctx_embed, remat: bool = False):
         """(compute dtype, context, embedded tokens, rope tables over
         positions 0..S-1) of a forward over the whole sequence."""
         self._check_grad_on_card(tokens)
         cfg = self.cfg
         cdt = getattr(torch, cfg.compute_dtype)
-        ctx = self.context_for(ctx_embed)
+        ctx = self.context_for(ctx_embed, remat=remat)
         positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
         return (cdt, ctx, self.embed(tokens, cdt),
                 A.rope_tables(positions, cfg.head_dim, cfg.rope_theta))
@@ -444,15 +452,16 @@ class Transformer(nn.Module):
         (B, S, Vp), aux), or with ``return_hidden`` the final-norm hidden
         states in place of the logits (the fused cross entropy unembeds
         them itself).  aux = {"lb_loss", "z_loss"}, f32 scalars summed over
-        the layers (zero without MoE).  ``remat``: each block under
-        non-reentrant ``torch.utils.checkpoint``, so the backward runs the
-        block's forward again (its flash kernel included) in place of
-        keeping its activations.  ``block_skip`` (the JAX package's causal
-        block skip) is accepted and changes nothing: the kernels visit
-        every tile, which gives the same loss."""
+        the layers (zero without MoE).  ``remat``: each block, the
+        encoder's too, under non-reentrant ``torch.utils.checkpoint``, so
+        the backward runs the block's forward again (its flash kernels
+        included) in place of keeping its activations.  ``block_skip``
+        (the JAX package's causal block skip) is accepted and changes
+        nothing: the kernels visit every tile, which gives the same
+        loss."""
         del block_skip
         cfg = self.cfg
-        cdt, ctx, x, rope = self._inputs(tokens, ctx_embed)
+        cdt, ctx, x, rope = self._inputs(tokens, ctx_embed, remat)
         lb = torch.zeros((), dtype=torch.float32, device=tokens.device)
         zl = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for blk in self.blocks:

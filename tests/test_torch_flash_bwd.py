@@ -37,7 +37,9 @@ BF16_UNITS = 2 * 2.0 ** -8
 
 # (B, Sq, Skv, H, Hkv, hd, causal, window): causal, window, non-causal
 # (Sq != Skv, as cross attention), GQA groups 7 (qwen2-0.5b's 14 over 2)
-# and 1, a ragged Skv (not a multiple of any KV block), bottom-right causal
+# and 1, a ragged Skv (not a multiple of any KV block), bottom-right causal;
+# at hd 256 recurrentgemma-2b's local attention (10 query heads over 1)
+# under a window below S, over a ragged Sq / Skv, and non-causal
 CASES = {
     "causal": (2, 48, 48, 4, 2, 64, True, None),
     "window": (1, 64, 64, 2, 1, 64, True, 16),
@@ -45,6 +47,9 @@ CASES = {
     "gqa7": (1, 32, 32, 14, 2, 64, True, None),
     "gqa1": (2, 32, 32, 3, 3, 128, True, None),
     "ragged": (1, 30, 50, 4, 2, 64, True, None),
+    "hd256_window": (1, 96, 96, 10, 1, 256, True, 40),
+    "hd256_ragged": (1, 70, 93, 10, 1, 256, True, 40),
+    "hd256_noncausal": (1, 48, 80, 10, 1, 256, False, None),
 }
 KV_BLOCK = 16
 
@@ -111,7 +116,8 @@ def test_autograd_matches_jax_vjp(case):
         _close(g, w, **F32_TOL)
 
 
-@pytest.mark.parametrize("case", ["causal", "window", "gqa7", "ragged"])
+@pytest.mark.parametrize("case", ["causal", "window", "gqa7", "ragged",
+                                  "hd256_window"])
 def test_bf16_autograd_matches_jax_vjp(case):
     arrays, mask = _inputs(case, seed=2)
     want = _jax_vjp(arrays, mask, jnp.bfloat16)
@@ -207,13 +213,21 @@ def test_bwd_smem_is_the_tile_layout(hd, dtype):
     dK/dV's two stages of 64 rows' (lse, D) and 256 bytes of barriers.
     float32: five [64][hd + 4] f32 tiles (K, V, two Q stages, dO; Q, dO,
     two K stages, V), one [64][68] score tile and (lse, D) of two Q tiles
-    (dK/dV) or one (dQ).  All within one block's 227 KB; the float32
-    kernels up to hd 64 within half an SM's 228 KB (two blocks an SM)."""
+    (dK/dV) or one (dQ); at hd 256 (two blocks a tile, one a column half)
+    four [64][68] chunk tiles, the half's columns of Q and dO (dK/dV) or
+    of K (dQ) as [64][132] tiles, the score tile and one Q tile's (lse,
+    D).  All within one block's 227 KB; the float32 kernels up to hd 64
+    within half an SM's 228 KB (two blocks an SM)."""
     dt = getattr(torch, dtype)
     if dt == torch.bfloat16:
         tiles = 1024 + 6 * 64 * hd * 2 + 256
         assert fkb.smem_bytes(hd, "dkdv", dt) == tiles + 2 * 64 * 8
         assert fkb.smem_bytes(hd, "dq", dt) == tiles
+    elif hd == 256:
+        assert fkb.column_halves(hd) == 2
+        fixed = 4 * 64 * 68 + 64 * 68 + 128
+        assert fkb.smem_bytes(hd, "dkdv", dt) == 4 * (fixed + 2 * 64 * 132)
+        assert fkb.smem_bytes(hd, "dq", dt) == 4 * (fixed + 64 * 132)
     else:
         tiles = 5 * 64 * (hd + 4) + 64 * 68
         assert fkb.smem_bytes(hd, "dkdv", dt) == 4 * (tiles + 256)
@@ -223,6 +237,20 @@ def test_bwd_smem_is_the_tile_layout(hd, dtype):
                        <= build.SM_SMEM for k in fkb.KERNELS)
     assert max(fkb.smem_bytes(hd, k, dt) for k in fkb.KERNELS) \
         <= fk.SMEM_BUDGET
+
+
+def test_hd256_fits_one_block_in_both_types():
+    """hd 256 is an instance of both types, and each of its four tile
+    kernels' shared memory is within what one H100 block can use (227 KB):
+    the bf16 dK/dV kernel at 194.25 KB, the float32 ones at 151.5 and
+    118.5 KB (column halves, 64-column chunks)."""
+    assert 256 in fkb.HEAD_DIMS
+    got = {(k, str(dt)): fkb.smem_bytes(256, k, dt) for k in fkb.KERNELS
+           for dt in fkb.DTYPES}
+    assert all(b <= 227 * 1024 == fk.SMEM_BUDGET for b in got.values())
+    assert got[("dkdv", "torch.bfloat16")] == 198912
+    assert got[("dkdv", "torch.float32")] == 155136
+    assert got[("dq", "torch.float32")] == 121344
 
 
 # (Sq, Skv, causal, window, q_offset) for the tile bounds: CASES' masks,

@@ -8,7 +8,9 @@ Tolerances (float32 on both sides; sums in another order):
 - cross entropy, ``loss_fn`` and its metrics: rtol 1e-5, ``test_training``'s
   fused-against-naive limit (the aux losses atol 1e-6, ``test_torch_moe``'s);
 - gradients: atol 1e-5 / rtol 1e-3, ``test_training``'s fused-against-
-  naive gradient limit;
+  naive gradient limit (``tests/_torch_train_common.py``, shared with
+  ``tests/test_torch_training_kinds.py``, which holds the hybrid,
+  encoder–decoder and xLSTM kinds the same way);
 - ``apply_updates``, ``schedule``, ``clip_by_global_norm``: rtol 1e-6 (the
   same f32 formula, one rounding apart); the moments atol 1e-12 besides;
 - microbatches against the full batch: loss rtol 1e-5, parameters atol 1e-5
@@ -23,8 +25,6 @@ Tolerances (float32 on both sides; sums in another order):
   eps 1e-6 keeps such elements still on both sides;
 - ``SyntheticLM.batch_at``: equal.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -47,45 +47,18 @@ from repro_torch.models import registry as tmr  # noqa: E402
 from repro_torch.training import objective as tobj  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training import step as tstep  # noqa: E402
+from tests._torch_train_common import (GRAD_TOL, PARAM_TOL,  # noqa: E402
+                                       as_port as _as_port,
+                                       jbatch as _jbatch, setup,
+                                       tbatch as _tbatch)
 
 MODELS = {"qwen2-0.5b": 2, "moonshot-v1-16b-a3b": 2}
-GRAD_TOL = dict(atol=1e-5, rtol=1e-3)
-PARAM_TOL = dict(atol=1e-5, rtol=1e-4)
-
-
-def _cfgs(name, layers):
-    f32 = lambda c: dataclasses.replace(c, compute_dtype="float32")
-    return (f32(jcr.reduced(name, n_layers=layers)),
-            f32(tcr.reduced(name, n_layers=layers)))
 
 
 def _setup(name, B=2, S=32, seed=0):
     """(JAX model, its params as numpy, the port's model holding them, a
-    numpy batch)."""
-    jcfg, tcfg = _cfgs(name, MODELS[name])
-    jmodel = jmr.build(jcfg)
-    params = jax.tree.map(np.asarray, jmodel.init(jax.random.key(seed)))
-    model = convert.from_jax_params(params, tcfg, device="cpu")
-    rng = np.random.default_rng(seed + 1)
-    seq = rng.integers(0, jcfg.vocab_size, (B, S + 1))
-    batch = {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
-    return jmodel, params, model, batch
-
-
-def _jbatch(batch):
-    return {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
-
-
-def _tbatch(batch):
-    return {k: torch.from_numpy(np.array(v)).long() for k, v in
-            batch.items()}
-
-
-def _as_port(tree_np, tcfg):
-    """A JAX parameter-shaped tree (gradients, moments) by the port's
-    parameter names."""
-    return {k: v.numpy() for k, v in convert.from_jax_params(
-        tree_np, tcfg, device="cpu").state_dict().items()}
+    numpy batch) at ``MODELS[name]`` layers."""
+    return setup(name, MODELS[name], B=B, S=S, seed=seed)
 
 
 def test_cross_entropy_matches_jax_with_padded_vocab():
