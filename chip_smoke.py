@@ -45,7 +45,14 @@ pairs capacity drops, decode steps held against the forward at a
 capacity that drops nothing with the routing held to the forward's (each
 gate on the next expert down, in every layer and in the middle layer,
 planted, which must fail; freely routed steps, eager and as a CUDA
-graph, reported), and the ``serve`` launcher's engine.  Then the xLSTM
+graph, reported), and the ``serve`` launcher's engine.  Then the archs
+path: the dense archs no other path runs, gemma-7b (attention at hd 256
+over 16 KV heads, a tied 256,000-row vocabulary), llama-3.2-vision-11b (a
+cross-attention layer every 5th over a 1,601-position stub context,
+non-causal at hd 128) and starcoder2-15b (GQA 48:4, QKV bias), each at full
+width and depth in bf16 and float32, its forward measured and predicted
+with the flash launches its layers make, decode steps held against the
+forward, and the ``serve`` launcher's engine in bf16.  Then the xLSTM
 path: xlstm-1.3b at full width (42 mLSTM and 6 sLSTM layers, plain
 PyTorch: no hand kernel), float32 and bf16, its forward measured, split by
 layer kind and predicted, decode steps held against the forward (the whole
@@ -107,6 +114,7 @@ exits non-zero and prints no result.  Imports nothing of JAX or of the JAX packa
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import contextlib
 import dataclasses
 import gc
@@ -191,12 +199,17 @@ MM_FULL = (2048, 4224, 4096)  # 528 tiles of 128 x 128: 4 full waves on 132 SMs
 # Tolerances of the kernels against their plain versions.  Matmul: the JAX
 # package's kernel tests (f32 atol 1e-4*sqrt(K), rtol 1e-4; bf16 atol
 # 8e-2*sqrt(K), rtol 5e-2).  Flash f32: the JAX kernel tests' atol 2e-5.
-# Flash bf16, per element: the kernel rounds P to bf16 (unit roundoff
-# 2^-8) as the A operand of P V, so its sum sum_j p_j v_j / l may move by
-# up to 2^-8 sum_j p_j |v_j| / l, which is flash_attention_plain(q, k, |v|);
-# that is the atol.  Both outputs are then rounded to bf16 once: the rtol
-# 2^-8.  The rest (S scaled after the product instead of q before it, the
-# order of f32 sums, exp2f) is f32 rounding, orders of magnitude below.
+# Flash bf16, per element: the atol is 2^-8 sum_j p_j |v_j| / l, which is
+# flash_attention_plain(q, k, |v|): what one rounding of P to bf16 (unit
+# roundoff 2^-8) may move sum_j p_j v_j / l by; the rtol 2^-8 is one
+# rounding of the output to bf16.  The kernel gives P V its P as a bf16
+# head and a bf16 remainder (to ~2^-16), so it differs from the plain
+# version by the two outputs' roundings to bf16, at most a bf16 ulp, which
+# the two terms hold (plain(q, k, |v|) >= |output|); P rounded once to
+# bf16 would take the whole atol in a row of few keys, and the second
+# rounding would pass them.  The rest (S scaled after the product instead
+# of q before it, the order of f32 sums, exp2f) is f32 rounding, orders of
+# magnitude below.
 MM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-2, 5e-2)}   # (atol/sqrt(K), rtol)
 FA_TOL = {"float32": (2e-5, 0.0),                              # (atol, rtol)
           "bfloat16": ("2^-8 * flash_attention_plain(q, k, |v|)", 2 ** -8)}
@@ -321,8 +334,9 @@ ENCDEC_SERVE_ARGS = ["--arch", ENCDEC, "--requests", "8", "--prompt-len",
 # each built from seed 0 on the card and freed before the next, at
 # MOE_RUNS' (dtype, layers): moonshot in bf16 at full depth (57.8 GB,
 # drawn and cast one part at a time: ``build(dtype=)``) and in float32 at
-# 24 of 48 layers (59.1 GB; 48 would be 115.6 GB), llama4-scout in bf16 at
-# 12 of 48 (57.0 GB; 48 would be 215.5 GB).  The forward is measured at
+# 12 of 48 layers (30.9 GB; 48 would be 115.6 GB, and 24, 59.1 GB, fit:
+# the cut pays for phase ``archs``' time), llama4-scout in bf16 at 12 of 48
+# (57.0 GB; 48 would be 215.5 GB).  The forward is measured at
 # MOE_FORWARD at the configs' capacity factor 1.25.  The decode check
 # prefills MOE_PROMPT tokens at batch MOE_BATCH and capacity MOE_PROMPT +
 # MOE_STEPS and takes MOE_STEPS steps, each held against the forward over
@@ -333,7 +347,7 @@ ENCDEC_SERVE_ARGS = ["--arch", ENCDEC, "--requests", "8", "--prompt-len",
 # depth, two waves of 4, capacity 1.25: the engine and ``check_served``
 # prefill the same waves, so both drop alike).
 MOE, MOE_SCOUT = "moonshot-v1-16b-a3b", "llama4-scout-17b-16e"
-MOE_RUNS = ((MOE, "bfloat16", 48), (MOE, "float32", 24),
+MOE_RUNS = ((MOE, "bfloat16", 48), (MOE, "float32", 12),
             (MOE_SCOUT, "bfloat16", 12))
 MOE_FORWARD = (8, 512)
 MOE_BATCH, MOE_PROMPT, MOE_STEPS = 8, 64, 32
@@ -348,6 +362,42 @@ MOE_REF_STEP_ERR = {48: 6.9e-2}
 MOE_SERVE_ARGS = ["--arch", MOE, "--requests", "8", "--prompt-len", "64",
                   "--max-new", "32", "--max-batch", "4", "--temperature",
                   "0", "--compute-dtype", "bfloat16", "--seed", "0"]
+# The archs phase: the dense archs no other phase runs, each at full width,
+# built from seed 0 on the card in its dtype (``build(dtype=)``) and freed
+# before the next: gemma-7b (28 layers, d 3072, 16 heads of 256 over 16,
+# GeGLU at d_ff 24,576, a tied 256,000-row vocabulary; 8.54 B parameters),
+# llama-3.2-vision-11b (40 layers, d 4096, 32 heads of 128 over 8, SiLU at
+# d_ff 14,336, vocab 128,256; every 5th layer adds cross attention over a
+# 1,601-position stub context, ``make_ctx``; 10.11 B) and starcoder2-15b
+# (40 layers, d 6144, 48 heads of 128 over 4, QKV bias, GELU at d_ff
+# 24,576, vocab 49,152; 15.96 B), at ARCHS_RUNS' (dtype, layers): every run
+# at full depth (starcoder2-15b's float32 weights take 63.8 GB of the
+# card's 80).  The forward is measured at ARCHS_FORWARD; the decode check
+# (``decode_record``: a prefill of ctx - 1 tokens at capacity ctx, one step
+# eagerly, planted one slot early and as a CUDA graph) runs at batch
+# ARCHS_FORWARD[0] over ARCHS_DECODE_CTXS[dtype]: float32 stops at 512,
+# since gemma-7b's float32 cache at 2048 is 15.0 GB a copy and the check
+# holds four copies beside 34.2 GB of weights.  The serving engine runs
+# the launcher's ARCHS_SERVE_ARGS (one wave of 4) for each arch in bf16.
+ARCHS = ("gemma-7b", "llama-3.2-vision-11b", "starcoder2-15b")
+ARCHS_RUNS = (("gemma-7b", "bfloat16", 28), ("gemma-7b", "float32", 28),
+              ("llama-3.2-vision-11b", "bfloat16", 40),
+              ("llama-3.2-vision-11b", "float32", 40),
+              ("starcoder2-15b", "bfloat16", 40),
+              ("starcoder2-15b", "float32", 40))
+ARCHS_FORWARD = (8, 512)
+ARCHS_DECODE_CTXS = {"bfloat16": (512, 2048), "float32": (512,)}
+# The decode check's logits limit (``archs_step_tol``): DECODE_TOL in
+# float32 and at ARCHS_TOL_LAYERS layers or fewer (it was set at
+# qwen2-0.5b's 24).  Deeper, in bf16, the JAX package's own step error at
+# that depth: ARCHS_REF_STEP_ERR[layers], the largest over the three archs
+# at reduced width, seeds 0-7 and contexts 512 and 2048
+# (``scripts/dense_step_drift.py``, on the CPU), rounded up to two digits.
+ARCHS_TOL_LAYERS = 24
+ARCHS_REF_STEP_ERR = {28: 4.3e-2, 40: 4.3e-2}
+ARCHS_SERVE_ARGS = ["--requests", "4", "--prompt-len", "64", "--max-new",
+                    "16", "--max-batch", "4", "--temperature", "0",
+                    "--compute-dtype", "bfloat16", "--seed", "0"]
 # The xLSTM phase: xlstm-1.3b at full width (48 layers, 42 mLSTM and 6
 # sLSTM, d 2048, 4 heads, mLSTM inner width 4096 at hd 1024, vocab 50,304
 # padded to 50,432; 3.65 B parameters: 14.60 GB in float32, 7.30 GB in
@@ -438,8 +488,9 @@ LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}
 # through the plain versions on the card, as each parameter's max |d| /
 # max |g|: float32 1e-3 (the two attentions differ by f32 sums in another
 # order, ~1e-6 of their outputs, carried through 24 layers and the loss);
-# bf16 1e-1 (the hand forward rounds P to bf16 before P V and the plain
-# version does not, ~2^-8 of each attention output, carried the same way).
+# bf16 1e-1 (the hand backward rounds P and dS to bf16 as the A operands
+# of its products and the plain version does not, ~2^-8 of each gradient
+# term, carried the same way).
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 TRAIN_STEPS = 6
 TRAIN_WARM, TRAIN_TIMED = 2, 5
@@ -451,12 +502,16 @@ TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
 # parameters, 46.3 GB of f32 weights, gradients and moments) at the hybrid
 # phase's long shape, past its 2,048-key window, so that the window's tile
 # bound is on the hd-256 backward's path; whisper-small at its decoder's 448
-# positions over the launcher's context of 1,500 frames; xlstm-1.3b (3.65 B
-# parameters, 58.4 GB of state) at B 1 x S 512; moonshot-v1-16b-a3b with its
-# depth cut to 4 layers (3.02 B parameters, 48.4 GB of state: its 48 would
-# need 462 GB), through the step and the gradient check only.  The launcher
-# runs the three uncut kinds once each, in bf16, for TRAIN_KIND_STEPS steps
-# (the step-0 checkpoint into TRAIN_CKPT, removed); each dtype's step is timed
+# positions over the launcher's context of 1,500 frames; xlstm-1.3b at B 1 x
+# S 512 with its depth cut to 8 layers (one period: 7 mLSTM and 1 sLSTM; its
+# 48 took 9.5-11.3 s a step of host-bound sLSTM launches and its launcher a
+# 43.8 GB checkpoint, 85 s of the phase, and the cut pays for phase
+# ``archs``' time); moonshot-v1-16b-a3b with its depth cut to 4 layers (3.02
+# B parameters, 48.4 GB of state: its 48 would need 462 GB).  The launcher
+# runs the kinds of TRAIN_KIND_LAUNCHER once each, at their depth, in bf16,
+# for TRAIN_KIND_STEPS steps (the step-0 checkpoint into TRAIN_CKPT,
+# removed); moonshot runs the step and the gradient check only; each dtype's
+# step is timed
 # over TRAIN_KIND_TIMED steps after TRAIN_KIND_WARM, whose losses must be
 # finite and falling.  The launcher's default learning rate, 1e-3, sends the
 # loss of recurrentgemma-2b, whisper-small and moonshot up past its start in
@@ -464,9 +519,10 @@ TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
 # weight); they train at 3e-5 (``--lr``), xlstm-1.3b at the default.
 TRAIN_KINDS = (("recurrentgemma-2b", 1, 4096, None, 3e-5),
                ("whisper-small", 8, 448, None, 3e-5),
-               ("xlstm-1.3b", 1, 512, None, 1e-3),
+               ("xlstm-1.3b", 1, 512, 8, 1e-3),
                ("moonshot-v1-16b-a3b", 8, 512, 4, 3e-5))
 TRAIN_KIND_STEPS = 2
+TRAIN_KIND_LAUNCHER = ("recurrentgemma-2b", "whisper-small", "xlstm-1.3b")
 TRAIN_KIND_WARM, TRAIN_KIND_TIMED = 1, 1
 # The restart run's losses against the uninterrupted run's where PyTorch
 # names an operation with no deterministic implementation (else they must
@@ -939,6 +995,33 @@ def moe_path_cases():
     return out
 
 
+def archs_path_cases():
+    """The flash calls of the archs path (ARCHS at full width), at each
+    (B, S) the path runs: the forward ARCHS_FORWARD, each decode check's
+    prefill of ctx - 1 tokens and forward over ctx (every dtype's ctxs),
+    and the serving engine's prefill (``check_served``'s too).  Each is the
+    self attention, causal over S keys at the arch's heads (gemma-7b's 16
+    of 256 over 16, llama-3.2-vision-11b's 32 of 128 over 8,
+    starcoder2-15b's 48 of 128 over 4), and llama-3.2-vision-11b's cross
+    attention, non-causal over its 1,601 context positions (its last KV
+    tile holds one key)."""
+    serve = serve_launcher.parse_args(["--arch", ARCHS[0],
+                                       *ARCHS_SERVE_ARGS])
+    B = ARCHS_FORWARD[0]
+    shapes = sorted({ARCHS_FORWARD, (serve.max_batch, serve.prompt_len)}
+                    | {(B, S) for ctxs in ARCHS_DECODE_CTXS.values()
+                       for ctx in ctxs for S in (ctx - 1, ctx)})
+    out = []
+    for arch in ARCHS:
+        c = cfg_registry.get(arch)
+        heads = (c.n_heads, c.n_kv_heads, c.head_dim)
+        out += [(B, S, S, *heads, True, None, None) for B, S in shapes]
+        if C.CROSS_ATTN in c.layer_kinds:
+            out += [(B, S, c.cross_attn_context_len, *heads, False, None,
+                     None) for B, S in shapes]
+    return out
+
+
 def paper_path_cases():
     """The flash calls of the paper path that the earlier paths lack: each
     Table IV forward (B, PAPER_SEQ) of each of PAPER_MODELS, causal, at the
@@ -970,9 +1053,10 @@ def check_flash(dtypes):
     (``grid_path_cases``), the schedule path's (``schedule_path_cases``),
     the hybrid path's (``hybrid_path_cases``), the encoder–decoder
     path's (``encdec_path_cases``: non-causal over 1,500 keys, ragged
-    against both tiles), the MoE path's (``moe_path_cases``: hd 128) and
-    the paper path's (``paper_path_cases``: hd 16, 32, 64 and 128 at S
-    128)."""
+    against both tiles), the MoE path's (``moe_path_cases``: hd 128), the
+    archs path's (``archs_path_cases``: hd 256 over 16 KV heads, GQA 12 at
+    hd 128, non-causal over 1,601 keys) and the paper path's
+    (``paper_path_cases``: hd 16, 32, 64 and 128 at S 128)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     cases = [  # (B, Sq, Skv, H, Hkv, hd, causal, window, layout)
         (2, 256, 256, 3, 3, 64, True, None, None),
@@ -995,7 +1079,7 @@ def check_flash(dtypes):
         (1, 150, 201, 4, 2, 256, True, None, "offset"),
     ] + decode_path_cases() + grid_path_cases() + schedule_path_cases() \
         + hybrid_path_cases() + encdec_path_cases() + moe_path_cases() \
-        + paper_path_cases()
+        + archs_path_cases() + paper_path_cases()
     worst = 0.0
     rows = []
     for cfg in fk.CONFIGS:
@@ -1427,19 +1511,23 @@ def decode_failures(rec):
     return bad
 
 
-def decode_check(model, cfg, tokens):
+def decode_check(model, cfg, tokens, ctx_embed=None, tol=None):
     """One decode step at (B, ctx) = ``tokens.shape``: prefill ctx - 1
     tokens at capacity ctx, step eagerly, as a step planted one slot early
-    and as a CUDA graph, and time the graph.  Returns the record of
+    and as a CUDA graph, and time the graph.  ``ctx_embed``: the context of
+    a model that takes one, given to the forward and the prefill; ``tol``:
+    the logits limit (default DECODE_TOL).  Returns the record of
     DECODE_CHECKS, the eager and graph step callables and the hand-kernel
     counts taken before the first step (``hand_launches_in_step`` covers
     the steps made here)."""
     dname = cfg.compute_dtype
+    tol = DECODE_TOL[dname] if tol is None else tol
     B, ctx = tokens.shape
-    logits = model(tokens)
+    logits = model(tokens, ctx_embed=ctx_embed)
     want = logits[:, -1].float()
     del logits
-    _, cache = model.prefill(tokens[:, :-1], max_len=ctx)
+    _, cache = model.prefill(tokens[:, :-1], ctx_embed=ctx_embed,
+                             max_len=ctx)
     kv = og.kv_cache_bytes(cfg, B, ctx, dname)
     tok = tokens[:, -1].contiguous()
     start = cache.clone()
@@ -1470,10 +1558,10 @@ def decode_check(model, cfg, tokens):
            "capacity": cache.capacity,
            "cache_bytes": cache.nbytes, "kv_cache_bytes": kv,
            "cache_bytes_ok": cache.nbytes == kv,
-           "logits_rel_err": err, "logits_tol": DECODE_TOL[dname],
-           "logits_ok": err <= DECODE_TOL[dname],
+           "logits_rel_err": err, "logits_tol": tol,
+           "logits_ok": err <= tol,
            "planted_fault_rel_err": fault_err,
-           "planted_fault_caught": fault_err > DECODE_TOL[dname],
+           "planted_fault_caught": fault_err > tol,
            "graph_bitwise": bool(torch.equal(eager, replay)),
            "hand_launches_in_step": launches_since(before),
            "graph_ms": graph_s * 1e3}
@@ -1485,12 +1573,13 @@ def launches_since(before):
             if v != before.get(k, 0)}
 
 
-def decode_record(model, pm, cfg, tokens):
-    """``decode_check`` plus the eager step's time, both steps' traces and
-    the scalar predictor's step."""
+def decode_record(model, pm, cfg, tokens, ctx_embed=None, tol=None):
+    """``decode_check`` (with ``ctx_embed`` and ``tol``) plus the eager
+    step's time, both steps' traces and the scalar predictor's step."""
     dname = cfg.compute_dtype
     B, ctx = tokens.shape
-    rec, eager_step, graph_step, before = decode_check(model, cfg, tokens)
+    rec, eager_step, graph_step, before = decode_check(model, cfg, tokens,
+                                                       ctx_embed, tol)
     eager_s = profiler.measure(eager_step)
     eager_trace = forward_trace(eager_step)
     graph_trace = forward_trace(graph_step)
@@ -3589,6 +3678,223 @@ def moe_serve(pm):
     return rec
 
 
+def phase_archs(store):
+    """The dense archs no other phase runs: ARCHS at full width, at
+    ARCHS_RUNS' dtypes and depths, each built from seed 0 on the card and
+    freed before the next (its build's seconds, its weights' bytes beside
+    ``param_count``'s, its peak).  (b) The forward at ARCHS_FORWARD:
+    finite logits of the padded vocab and exactly the flash launches its
+    layers make (``archs_flash``: gemma-7b's all at hd 256, the others' at
+    hd 128, llama-3.2-vision-11b's cross calls non-causal), its time and
+    trace against ``predict_model`` (``archs_forward``).  (c) Decode at
+    ARCHS_DECODE_CTXS (``decode_record``: DECODE_CHECKS at
+    ``archs_step_tol``, no hand launch in the step), over a seeded context
+    where the arch takes one.  (d) The launcher's bf16 engine for each arch,
+    every token held against eager steps (``archs_serve``).  The flash
+    kernel is held against its plain version at this path's shapes by
+    ``check_flash`` ((a), ``archs_path_cases``) and timed at each arch's
+    (8, 512) in the ``kernels`` line ((e), ``archs``).  Returns the
+    records and each arch's hand launches (``launches_by_arch``).  Fails if
+    a check of (b)-(d) fails."""
+    t0 = time.perf_counter()
+    pm = PM2Lat(store, store.meta["device"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    builds, forwards, decodes, serves = [], [], [], []
+    launches = {arch: {} for arch in ARCHS}
+
+    def count(arch, before):
+        for k, n in launches_since(before).items():
+            launches[arch][k] = launches[arch].get(k, 0) + n
+
+    for arch, dname, n_layers in ARCHS_RUNS:
+        before = hand_launches()
+        torch.cuda.empty_cache()
+        full = cfg_registry.get(arch)
+        cfg = dataclasses.replace(full, compute_dtype=dname, n_layers=n_layers)
+        dt = getattr(torch, dname)
+        torch.cuda.reset_peak_memory_stats()
+        t_build = time.perf_counter()
+        model = model_registry.build(cfg, device="cuda", seed=0, dtype=dt)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        builds.append({"arch": arch, "dtype": dname, "n_layers": n_layers,
+                       "full_layers": full.n_layers,
+                       "build_s": time.perf_counter() - t_build,
+                       "weight_bytes": sum(p.nbytes
+                                           for p in model.parameters()),
+                       "param_count_bytes": cfg.param_count() * dt.itemsize,
+                       "n_params": n, "param_count": cfg.param_count(),
+                       "build_peak_bytes": torch.cuda.max_memory_allocated()})
+        emit("archs_build", **builds[-1])
+        B, S = ARCHS_FORWARD
+        with torch.no_grad():
+            tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   device="cuda")
+            forwards.append(archs_forward(model, pm, cfg, tokens,
+                                          model.make_ctx(B, gen)))
+            for ctx in ARCHS_DECODE_CTXS[dname]:
+                tokens = torch.randint(0, cfg.vocab_size, (B, ctx),
+                                       generator=gen, device="cuda")
+                rec = decode_record(model, pm, cfg, tokens,
+                                    model.make_ctx(B, gen),
+                                    archs_step_tol(cfg))
+                rec = {"arch": arch, "n_layers": n_layers, **rec,
+                       "failed": decode_failures(rec)}
+                emit("archs_decode", **rec)
+                decodes.append(rec)
+        del model
+        count(arch, before)
+    torch.cuda.empty_cache()
+    for arch in ARCHS:
+        before = hand_launches()
+        serves.append(archs_serve(pm, arch))
+        torch.cuda.empty_cache()
+        count(arch, before)
+    rec = {"builds": builds, "forwards": forwards, "decodes": decodes,
+           "serves": serves, "launches_by_arch": launches,
+           "seconds": time.perf_counter() - t0}
+    emit("archs", seconds=rec["seconds"], launches_by_arch=launches)
+    bad = [f"{kind} {r['arch']} {r['dtype']}: {r['failed']}"
+           for kind, recs in (("forward", forwards), ("decode", decodes),
+                              ("serve", serves))
+           for r in recs if r["failed"]]
+    if bad:
+        raise AssertionError(f"archs: {bad}")
+    return rec
+
+
+def archs_step_tol(cfg) -> float:
+    """The decode check's logits limit for ``cfg`` (ARCHS_REF_STEP_ERR)."""
+    if cfg.compute_dtype == "float32" or cfg.n_layers <= ARCHS_TOL_LAYERS:
+        return DECODE_TOL[cfg.compute_dtype]
+    return ARCHS_REF_STEP_ERR[cfg.n_layers]
+
+
+def archs_flash(cfg, calls=1):
+    """The flash launches of ``calls`` calls over ``cfg``'s every layer, as
+    ``hand_launches`` names them: one a layer, and a cross-attention
+    layer's cross call besides, non-causal; all at ``cfg``'s head dim."""
+    n_cross = sum(kind == C.CROSS_ATTN for kind in cfg.layer_kinds)
+    n = train_attention_calls(cfg)
+    want = {"flash_attention": n, f"flash_attention@hd{cfg.head_dim}": n,
+            "flash_attention@causal": n - n_cross}
+    if n_cross:
+        want["flash_attention@noncausal"] = n_cross
+    return {k: v * calls for k, v in want.items()}
+
+
+def archs_forward(model, pm, cfg, tokens, ctx):
+    """(b) One forward at (B, S) = ``tokens.shape`` over the context
+    ``ctx`` (None for an arch that takes none): finite logits of the padded
+    vocab, its hand launches exactly ``archs_flash``'s; its peak memory,
+    its time (``profiler.measure``) and trace (GEMM, flash, idle, top 10)
+    against ``predict_model`` (by op kind)."""
+    B, S = tokens.shape
+    dname = cfg.compute_dtype
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = hand_launches()
+    logits = model(tokens, ctx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flash = launches_since(before)
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    measured = profiler.measure(model, tokens, ctx)
+    trace = forward_trace(model, tokens, ctx)
+    total, rows = pm.predict_model(cfg, B, S, dtype=dname)
+    by_kind = {}
+    for r in rows:
+        by_kind[r.kind] = by_kind.get(r.kind, 0.0) + r.seconds * 1e3
+    want = archs_flash(cfg)
+    failed = [] if finite else ["logits not finite"]
+    failed += [] if shape == [B, S, model.padded_vocab] else [f"shape {shape}"]
+    failed += [] if flash == want else [f"launches {flash}, expected {want}"]
+    rec = {"arch": cfg.name, "dtype": dname, "batch": B, "seq": S,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "context": None if ctx is None else list(ctx.shape),
+           "logits_shape": shape, "logits_finite": finite,
+           "launches_per_forward": flash, "peak_mem_gb": peak / 1e9,
+           "measured_ms": measured * 1e3, "predicted_ms": total * 1e3,
+           "err_pct": 100 * abs(total - measured) / measured,
+           "predicted_ms_by_kind": by_kind,
+           "top5_predicted": [[r.name, r.kernel, r.seconds * 1e3] for r in
+                              sorted(rows, key=lambda r: -r.seconds)[:5]],
+           "device_trace": trace, "failed": failed}
+    emit("archs_forward", **rec)
+    return rec
+
+
+def archs_serve(pm, arch):
+    """(d) The ``serve`` launcher's engine at ARCHS_SERVE_ARGS for ``arch``
+    at full depth in bf16 (built in its dtype): 4 prompts of 64 tokens, 16
+    new each, in one wave, greedy, over the engine's context where the arch
+    takes one.  Fails unless every request ends with its 16 tokens, the
+    hand launches are exactly ``archs_flash``'s a wave (the prefill's), and
+    every served token equals eager steps' (``check_served``, run after the
+    launches are read).  Prices the prompt and the decode steps over the
+    contexts they ran at."""
+    args = serve_launcher.parse_args(["--arch", arch, *ARCHS_SERVE_ARGS])
+    cfg = dataclasses.replace(cfg_registry.get(arch),
+                              compute_dtype=args.compute_dtype)
+    before = hand_launches()
+    engine, done = serve_launcher.serve(args)
+    since = launches_since(before)
+    out = serve_launcher.summary(engine, done)
+    served = check_served(engine, done)
+    dt = args.compute_dtype
+    prefill_s, _ = pm.predict_model(cfg, args.max_batch, args.prompt_len,
+                                    dtype=dt)
+    ctxs = range(args.prompt_len + 1, args.prompt_len + args.max_new)
+    step_s = float(np.mean([pm.predict_ops(og.enumerate_decode_ops(
+        cfg, args.max_batch, c, dtype=dt))[0] for c in ctxs]))
+    st = engine.stats
+    want = archs_flash(cfg, -(-args.requests // args.max_batch))
+    failed = [] if sorted({len(r.out_tokens) for r in done}) == [
+        args.max_new] else ["tokens each"]
+    failed += [] if since == want else [f"launches {since}, expected {want}"]
+    failed += [f"requests unlike the eager steps {served['mismatched']}"] \
+        if served["mismatched"] else []
+    rec = {"arch": arch, "dtype": dt, **out, "requests": len(done),
+           "prefills": st.prefills, "capacity": engine.max_len,
+           "ttft_p50_ms": st.ttft_p50 * 1e3, "ttft_p95_ms": st.ttft_p95 * 1e3,
+           "tpot_p50_ms": st.tpot_p50 * 1e3, "tpot_p95_ms": st.tpot_p95 * 1e3,
+           "launches": since, "served_vs_eager": served,
+           "predicted_prefill_ms": prefill_s * 1e3,
+           "predicted_decode_step_ms": step_s * 1e3,
+           "wall_s": engine.wall_s, "failed": failed}
+    emit("archs_serve", **rec)
+    del engine
+    return rec
+
+
+def archs_launch_faults(by_arch, total):
+    """What is wrong with the archs path's hand launches: each arch's must
+    be flash forwards only, all at its head dim (gemma-7b's at 256, the
+    others' at 128), causal but for llama-3.2-vision-11b's cross calls
+    (``archs_flash``'s keys: no backward, no matmul), and their sum the
+    path's count.  Each call's own count is held by the record that made
+    it (``archs_forward``, ``archs_serve``)."""
+    bad = []
+    for arch, got in by_arch.items():
+        cfg = cfg_registry.get(arch)
+        n = got.get("flash_attention", 0)
+        mask = got.get("flash_attention@causal", 0) \
+            + got.get("flash_attention@noncausal", 0)
+        if (set(got) != set(archs_flash(cfg)) or not n or mask != n
+                or got[f"flash_attention@hd{cfg.head_dim}"] != n):
+            bad.append(f"{arch}: {got}")
+    summed = {}
+    for got in by_arch.values():
+        for k, n in got.items():
+            summed[k] = summed.get(k, 0) + n
+    if summed != {k: n for k, n in total.items() if n}:
+        bad.append(f"the arch counts sum to {summed}, the path's are {total}")
+    return bad
+
+
 def phase_xlstm(store):
     """xlstm-1.3b at full width, float32 then bf16, each built from seed 0
     on the card and freed before the next.  (b) the forward at
@@ -4208,8 +4514,8 @@ def phase_train(store):
 def train_kind(store, arch, B, S, depth, lr):
     """One model kind of TRAIN_KINDS at full width (its depth cut to
     ``depth`` where given), at (B, S) and learning rate ``lr``: (a)
-    ``launch.train.run`` for TRAIN_KIND_STEPS steps in bf16 where the
-    depth is the config's; then in each dtype (b) the step timed and
+    ``launch.train.run`` for TRAIN_KIND_STEPS steps in bf16 for the kinds
+    of TRAIN_KIND_LAUNCHER; then in each dtype (b) the step timed and
     split (``train_step_times``, warm TRAIN_KIND_WARM, timed
     TRAIN_KIND_TIMED: its losses finite and falling, two flash forwards
     and one backward a call ``train_attention_calls`` counts), (c)
@@ -4228,9 +4534,9 @@ def train_kind(store, arch, B, S, depth, lr):
     rec = {"arch": arch, "batch": B, "seq": S, "n_layers": cfg0.n_layers,
            "depth_cut": depth is not None, "lr": lr, "n_params": n,
            "state_gb": 16 * n / 1e9}
-    if depth is None:
+    if arch in TRAIN_KIND_LAUNCHER:
         rec["launcher"] = train_launch("bfloat16", arch, B, S,
-                                       TRAIN_KIND_STEPS, lr)
+                                       TRAIN_KIND_STEPS, lr, depth)
         emit("train_kind", arch=arch, launcher=rec["launcher"])
     for dname in DTYPES:
         cfg = dataclasses.replace(cfg0, compute_dtype=dname)
@@ -4262,7 +4568,10 @@ def phase_dist(train):
     ``compressed_psum`` of CUDA tensors over them equal bit for bit to the
     host's on the same rows; (c) DIST_SERVE: one NCCL rank a model at
     ``--mesh 1x1`` serving through the sharded path, the models side by
-    side (``dist_serve``).  Two ranks train on no card here: gloo
+    side (``dist_serve``), and (b) beside them.  (a)'s two dtypes run side
+    by side too, so their step times are read with another process on the
+    card: no time here has a limit, and each process takes tens of seconds
+    to start.  Two ranks train on no card here: gloo
     carries DTensor's functional collectives on CUDA tensors into a
     segfault in this torch (``PERF.md`` §7), and NCCL takes one rank a
     card.  The hand-kernel launches are counted in the rank processes,
@@ -4270,26 +4579,30 @@ def phase_dist(train):
     t0 = time.perf_counter()
     runs, launches = [], {"matmul": 0, "flash_attention": 0,
                           "flash_attention_bwd": 0}
-    serve = dist_serve()
+    with cf.ThreadPoolExecutor(1) as pool:
+        psum_run = pool.submit(dist_launch, DIST_PSUM_RANKS, [
+            "--psum-check", "--dist-backend", "gloo"], "psum")
+        serve = dist_serve()
+        psum_recs = psum_run.result()
     for rec in serve:
         for part in ("plain_launches", "mesh_launches"):
             for k in ("matmul", "flash_attention"):
                 launches[k] += rec[part][k]
-    for dname in DTYPES:
-        recs = dist_launch(1, [
+    with cf.ThreadPoolExecutor(len(DTYPES)) as pool:
+        one = {dname: pool.submit(dist_launch, 1, [
             "--", "--arch", MODEL, "--steps", str(DIST_ONE_STEPS), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--compute-dtype",
-            dname, "--mesh", "1x1"], f"1x1_{dname}")
+            dname, "--mesh", "1x1"], f"1x1_{dname}") for dname in DTYPES}
+    for dname in DTYPES:
+        recs = one[dname].result()
         rec = dist_record(recs, dname, train[dname]["launcher"])
         emit("dist", **rec)
         runs.append(rec)
         for k, n in recs[0]["launches"].items():
             launches[k] += n
-    recs = dist_launch(DIST_PSUM_RANKS, ["--psum-check", "--dist-backend",
-                                         "gloo"], "psum")
-    psum = {"ranks": len(recs), "backend": recs[0]["backend"],
-            "devices": [r["device"] for r in recs],
-            "by_rank": [r["psum"] for r in recs]}
+    psum = {"ranks": len(psum_recs), "backend": psum_recs[0]["backend"],
+            "devices": [r["device"] for r in psum_recs],
+            "by_rank": [r["psum"] for r in psum_recs]}
     psum["ok"] = all(p["bit_equal"] for p in psum["by_rank"])
     emit("dist_psum", **psum)
     if not psum["ok"]:
@@ -4607,27 +4920,30 @@ def dist_record(recs, dname, ref):
 
 
 def train_launch(dname, arch=MODEL, B=TRAIN_BATCH, S=TRAIN_SEQ,
-                 steps=TRAIN_STEPS, lr=1e-3):
-    """``launch.train.run`` at full width: the losses (finite, the last
-    below the first), the step-0 checkpoint (its bytes against the state's
-    and its write seconds), then the directory removed."""
+                 steps=TRAIN_STEPS, lr=1e-3, n_layers=None):
+    """``launch.train.run`` at full width (its depth cut to ``n_layers``
+    where given): the losses (finite, the last below the first), the
+    step-0 checkpoint (its bytes against the state's and its write
+    seconds), then the directory removed."""
     ckpt = TRAIN_CKPT / dname
     shutil.rmtree(ckpt, ignore_errors=True)
+    depth = ["--n-layers", str(n_layers)] if n_layers else []
     args = train_launcher.parse_args([
         "--arch", arch, "--steps", str(steps), "--batch", str(B), "--seq",
         str(S), "--lr", str(lr), "--compute-dtype", dname, "--ckpt-dir",
-        str(ckpt), "--ckpt-every", str(steps + 1)])
+        str(ckpt), "--ckpt-every", str(steps + 1), *depth])
     try:
         res = train_launcher.run(args)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    n = n_params(cfg_registry.get(arch))
+    cfg = cfg_registry.get(arch)
+    n = n_params(dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers))
     state_bytes = 3 * 4 * n + 4          # params, m, v in f32; the step
     ck = res["checkpoints"]
     losses = res["losses"]
-    rec = {"losses": losses, "wall_s": res["wall_s"],
+    rec = {"n_layers": n_layers, "losses": losses, "wall_s": res["wall_s"],
            "step_seconds": res["step_seconds"],
            "restarts": res["restarts"],
            "straggler_events": res["straggler_events"],
@@ -4967,7 +5283,7 @@ def device_ms_faults(lines):
     return bad
 
 
-def kernel_lines(by_path, mm_pick, launches_by_kind):
+def kernel_lines(by_path, mm_pick, launches_by_kind, launches_by_arch):
     """Each hand kernel in bf16 at the main path's shapes: its time (and
     each config's), its own device time, its plain version's time, one
     PyTorch call's (a yardstick only), and the card's bound.  The matmul is
@@ -4982,7 +5298,12 @@ def kernel_lines(by_path, mm_pick, launches_by_kind):
     the encoder's (8, 1500) and the cross attention's (8, 448 x 1500), and
     the non-causal launches on each path (``flash_case``); its ``hd128``
     the same for moonshot-v1-16b-a3b's (8, 512), 16 heads of 128, causal,
-    and the hd-128 launches on each path; its ``paper`` the same for the
+    and the hd-128 launches on each path; its ``archs`` the same for the
+    archs path's three calls at ARCHS_FORWARD (``archs_timed``: gemma-7b's
+    16 heads of 256 over 16 and starcoder2-15b's 48 of 128 over 4, causal;
+    llama-3.2-vision-11b's cross attention, 32 of 128 over 8, non-causal
+    over 1,601 keys) and each arch's launches (``launches_by_arch``: phase
+    ``archs``'); its ``paper`` the same for the
     paper path's narrow heads at PAPER_TIMED (PAPER_TIMED_ARCHS: hd 32,
     qwen3-mini's 8 over 4; hd 16, a reduced config's 4 over 4), causal,
     and the hd-32 and hd-16 launches on each path; the backward's line is
@@ -5179,6 +5500,10 @@ def kernel_lines(by_path, mm_pick, launches_by_kind):
                                        for p, n in by_path.items()},
                   "cases": [flash_case(MOE, *MOE_FORWARD, MOE_FORWARD[1], dt,
                                        True) for dt in (bf, f32)]},
+        "archs": {"launches_by_arch": launches_by_arch,
+                  "cases": [flash_case(arch, *ARCHS_FORWARD, Skv, dt, causal)
+                            for arch, Skv, causal in archs_timed()
+                            for dt in (bf, f32)]},
         "paper": {"launches_by_path": {
             p: {f"hd{hd}": n.get(f"flash_attention@hd{hd}", 0)
                 for hd in (16, 32)} for p, n in by_path.items()},
@@ -5194,7 +5519,7 @@ def kernel_lines(by_path, mm_pick, launches_by_kind):
                 f"{line['name']} at the main-path shape: max err "
                 f"{line['max_abs_err']} (bf16), {f['max_abs_err']} (float32)")
     flash = next(x for x in lines if x["name"] == "flash_attention")
-    for key in ("hd256", "encdec", "hd128", "paper"):
+    for key in ("hd256", "encdec", "hd128", "archs", "paper"):
         cases = flash[key]["cases"]
         if not all(c["ok"] for c in cases):
             raise AssertionError(f"flash {key} cases: max errs "
@@ -5311,6 +5636,19 @@ def bwd_case(case, dt, gen):
            "library_max_rel_err": max(lib_errs)}
     del q, k, v, o, do, want, args
     return row
+
+
+def archs_timed():
+    """(arch, Skv, causal) of each flash call the ``kernels`` line times at
+    ARCHS_FORWARD: each arch's self attention, and llama-3.2-vision-11b's
+    cross attention in place of its self attention."""
+    out = []
+    for arch in ARCHS:
+        c = cfg_registry.get(arch)
+        out.append((arch, c.cross_attn_context_len, False)
+                   if C.CROSS_ATTN in c.layer_kinds
+                   else (arch, ARCHS_FORWARD[1], True))
+    return out
 
 
 def encdec_timed():
@@ -5455,6 +5793,9 @@ def main() -> int:
     moe = phase_moe(store)
     by_path["moe"] = hand_launches()
     reset_launches()
+    archs = phase_archs(store)
+    by_path["archs"] = hand_launches()
+    reset_launches()
     xlstm = phase_xlstm(store)
     by_path["xlstm"] = hand_launches()
     reset_launches()
@@ -5484,7 +5825,7 @@ def main() -> int:
         raise AssertionError(f"the xlstm path launched a hand kernel: "
                              f"{by_path['xlstm']}")
     for path in ("decode", "serve", "grid", "schedule", "service", "hybrid",
-                 "encdec", "moe", "paper"):
+                 "encdec", "moe", "archs", "paper"):
         if by_path[path]["flash_attention"] == 0:
             raise AssertionError(f"the {path} path never launched "
                                  f"flash_attention")
@@ -5492,19 +5833,24 @@ def main() -> int:
     if moe_flash.get("flash_attention@hd128") != moe_flash["flash_attention"]:
         raise AssertionError(f"the moe path's flash launches are not all at "
                              f"hd 128: {moe_flash}")
+    bad = archs_launch_faults(archs["launches_by_arch"], by_path["archs"])
+    if bad:
+        raise AssertionError(f"the archs path's hand launches: {bad}")
 
     gc.collect()        # the phases' garbage out before the kernels' timings
     m, n, _ = MM_SHAPE
     mm_pick = PM2Lat(store, store.meta["device"]).oracle.select_matmul(
         "matmul", "bfloat16", m, n, provider=PROVIDER_PALLAS).key.kernel
-    kernels = kernel_lines(by_path, mm_pick, train["launches_by_kind"])
+    kernels = kernel_lines(by_path, mm_pick, train["launches_by_kind"],
+                           archs["launches_by_arch"])
     floors = matmul_floors(next(x for x in kernels
                                 if x["name"] == "matmul")["float32"])
     emit("matmul_floors", rows=floors)
     record.update(table6=table6, model=model, decode=decode,
                   decode_floors=decode_floors, serve=serving, grid=grid,
                   schedule=schedule, service=service, hybrid=hybrid,
-                  encdec=encdec, moe=moe, xlstm=xlstm, paper=paper,
+                  encdec=encdec, moe=moe, archs=archs, xlstm=xlstm,
+                  paper=paper,
                   train=train, dist=dist, dryrun=dry, drivers=drivers,
                   kernels=kernels,
                   matmul_floors=floors,

@@ -38,12 +38,19 @@
 // TPU scales q in f32 first; a bf16 operand cannot carry that), masked,
 // row max comes from quad shuffles, the accumulator is rescaled by
 // exp(m_old - m_new), and each thread sums l over its own columns until
-// the epilogue.  P is rounded to bf16 in registers and is the A operand of
-// O += P V (wgmma from registers; V [BK, hd] is MN-major: the transpose
-// flag).  On the TPU, jnp.dot(p, v) at JAX's default precision also runs
-// its f32 operands through bf16 MXU passes.  The epilogue divides by l and
-// stores bf16.  Rows of 128 bytes or more (hd 64, 128) use the 128-byte
-// swizzle in 64-column boxes; hd 16 and 32 use the 32- and 64-byte
+// the epilogue.  P is split in registers into its bf16 rounding and the
+// bf16 rounding of the rest, the A operands of two products O += P_hi V +
+// P_lo V (wgmma from registers; V [BK, hd] is MN-major: the transpose
+// flag), so P enters at ~2^-16 of itself.  One
+// rounding of P to bf16 would move a row's output by up to 2^-8 sum_j p_j
+// |v_j| / l, in a row of few keys as much as the output's own rounding,
+// and with the two outputs' roundings pass the check against the plain
+// version (f32 P); the second product costs a third more tensor-core work,
+// the split a second bf16 conversion a pair.  On the TPU,
+// jnp.dot(p, v) at JAX's default precision runs its f32 operands through
+// one bf16 MXU pass.  The epilogue divides by l and stores bf16.  Rows
+// of 128 bytes or more (hd 64, 128) use the 128-byte swizzle in 64-column
+// boxes; hd 16 and 32 use the 32- and 64-byte
 // swizzles.  An operand whose base address or strides are no multiple of
 // 16 bytes cannot go through TMA: then the consumers copy each tile
 // themselves (hopper::load_tile_sync) into the same layout, one stage, and
@@ -80,8 +87,9 @@
 // hd 256 in bf16 (fa_64x64 only: fa_128x128's tiles would take 328,960
 // bytes): one warpgroup of 128 threads, so ptxas may give a thread 255
 // registers, and its 64 x 256 f32 O tile (128 a thread) with S (32) and P
-// (16) fit.  O += P V is two wgmma.m64n128k16 a k-step, one for each half
-// of O's columns (V's 64-column chunks 0-1 and 2-3).  TMA boxes stay 64
+// (16, and 16 of P's remainder) fit.  O += P V is two wgmma.m64n128k16 a
+// k-step for each half of O's columns (V's 64-column chunks 0-1 and 2-3),
+// one for P's bf16 head and one for its remainder.  TMA boxes stay 64
 // columns wide.  These instances serve recurrentgemma-2b's local
 // attention (10 query heads over 1 KV head, window 2048).
 
@@ -528,8 +536,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     m0 = mn0;
     m1 = mn1;
 
-    // P = exp(S - m) in f32 for l, rounded to bf16 as the A fragments.
-    uint32_t pa[BK / 16][4];
+    // P = exp(S - m) in f32 for l; the A fragments of P V are its bf16
+    // rounding (pa) and the bf16 rounding of what that leaves (pr), so
+    // that P reaches the product to ~2^-16 of itself, not 2^-8.
+    uint32_t pa[BK / 16][4], pr[BK / 16][4];
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
     for (int jj = 0; jj < BK / 8; ++jj) {
@@ -539,8 +549,10 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const float p3 = exp2f((sacc[4 * jj + 3] - mn1) * kLog2e);
       ps0 += p0 + p1;
       ps1 += p2 + p3;
-      pa[jj / 2][(jj % 2) * 2 + 0] = pack_bf16(p0, p1);
-      pa[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(p2, p3);
+      split_bf16(p0, p1, pa[jj / 2][(jj % 2) * 2 + 0],
+                 pr[jj / 2][(jj % 2) * 2 + 0]);
+      split_bf16(p2, p3, pa[jj / 2][(jj % 2) * 2 + 1],
+                 pr[jj / 2][(jj % 2) * 2 + 1]);
     }
     l0 = l0 * corr0 + ps0;
     l1 = l1 * corr1 + ps1;
@@ -552,8 +564,9 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       oacc[4 * jj + 3] *= corr1;
     }
 
-    // O += P V, P from registers, V MN-major from shared memory; at hd 256
-    // one product for each half of O's columns (ON = 128).
+    // O += P V for P's bf16 head and its remainder, from registers, V
+    // MN-major from shared memory; at hd 256 for each half of O's columns
+    // (ON = 128).
     if (tma) mbar_wait(vfull(s), (j / S::ST) & 1);
     const uint32_t v_base = smem_u32(sv(s));
     fence_regs<HD / 2>(oacc);
@@ -566,6 +579,7 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             v_base + n * (S::ON / S::CH) * BK * S::CH * 2 + kk * 16 * S::CH * 2,
             BK * S::CH * 2, 8 * S::CH * 2);
         wgmma_rs<S::ON, 1>(oacc + n * (S::ON / 2), pa[kk], db);
+        wgmma_rs<S::ON, 1>(oacc + n * (S::ON / 2), pr[kk], db);
       }
     }
     wgmma_commit();

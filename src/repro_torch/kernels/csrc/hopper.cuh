@@ -188,6 +188,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (lo, hi) as two bf16 pairs whose sum is them to ~2^-16: ``head`` their
+// bf16 rounding, ``rest`` the bf16 rounding of what the head leaves (exact
+// in f32); the head is read back from its own bits, so a pair costs two
+// conversions.
+__device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& head,
+                                           uint32_t& rest) {
+  head = pack_bf16(lo, hi);
+  rest = pack_bf16(lo - __uint_as_float(head << 16),
+                   hi - __uint_as_float(head & 0xffff0000u));
+}
+
 // ------------------------------------------------------------ wgmma (bf16)
 //
 // Accumulator fragment of m64nNk16 (f32), thread t of the warpgroup, warp

@@ -121,7 +121,8 @@ def run(args) -> dict:
 
 def _run(args, device, mesh) -> dict:
     cfg = cr.reduced(args.arch) if args.reduced else cr.get_any(args.arch)
-    cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
+    cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype,
+                              n_layers=args.n_layers or cfg.n_layers)
     model = mr.build(cfg, device=device, seed=args.seed)
     if mesh is not None:
         sh.distribute_module_(model, sp.params_specs(model), mesh)
@@ -182,6 +183,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    # the config's depth cut to this many layers (its widths kept)
+    ap.add_argument("--n-layers", type=int, default=None)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

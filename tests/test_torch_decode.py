@@ -53,6 +53,9 @@ CASES = {"qwen2-0.5b-reduced": lambda m: m.reduced("qwen2-0.5b", n_layers=2),
                                                           n_layers=5),
          "xlstm-1.3b-reduced": lambda m: m.reduced("xlstm-1.3b"),
          "whisper-small-reduced": lambda m: m.reduced("whisper-small"),
+         "gemma-7b-reduced": lambda m: m.reduced("gemma-7b", n_layers=2),
+         "starcoder2-15b-reduced": lambda m: m.reduced("starcoder2-15b",
+                                                       n_layers=2),
          "llama-3.2-vision-reduced": lambda m: m.reduced(
              "llama-3.2-vision-11b")}
 # the cases whose decode step prices an attention read (xLSTM has none)

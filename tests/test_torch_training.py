@@ -394,6 +394,19 @@ def test_launch_train_end_to_end_with_a_failure(tmp_path, capsys):
     assert "[train] arch=qwen2-0.5b-reduced steps=8" in capsys.readouterr().out
 
 
+def test_launch_train_cuts_the_depth(tmp_path, monkeypatch):
+    """``--n-layers`` trains the config at that depth, its widths kept."""
+    built = []
+    build = train.mr.build
+    monkeypatch.setattr(train.mr, "build", lambda cfg, **kw: (
+        built.append(cfg), build(cfg, **kw))[1])
+    res = train.run(_train_args(tmp_path, "--steps", "2", "--n-layers", "1"))
+    full = tcr.reduced("qwen2-0.5b")
+    assert [(c.n_layers, c.d_model, c.d_ff) for c in built] == [
+        (1, full.d_model, full.d_ff)]
+    assert res["steps"] == [0, 1] and np.isfinite(res["losses"]).all()
+
+
 def test_launch_train_takes_one_device_only(tmp_path):
     with pytest.raises(ValueError):
         train.run(_train_args(tmp_path, "--mesh", "2x1"))
