@@ -507,20 +507,37 @@ TRAIN_RESTART = ROOT / "scripts" / "torch_train_restart.py"
 # 48 took 9.5-11.3 s a step of host-bound sLSTM launches and its launcher a
 # 43.8 GB checkpoint, 85 s of the phase, and the cut pays for phase
 # ``archs``' time); moonshot-v1-16b-a3b with its depth cut to 4 layers (3.02
-# B parameters, 48.4 GB of state: its 48 would need 462 GB).  The launcher
+# B parameters, 48.4 GB of state: its 48 would need 462 GB); phase
+# ``archs``' three dense archs at its forward shape, B 8 x S 512, their
+# widths full and their depths cut so that the state fits one card (16
+# bytes a parameter: 137, 162 and 255 GB at full depth): gemma-7b at 4
+# layers (1.89 B parameters, 30.3 GB; the backward at hd 256 over 16 KV
+# heads, GeGLU, the tied 256,000-row unembedding), llama-3.2-vision-11b at
+# 5, one block-pattern period so that its cross-attention layer is in (2.18
+# B, 34.9 GB; the non-causal backward over the context's 1,601 keys, a
+# one-key last tile, at GQA 4), starcoder2-15b at 4 (2.14 B, 34.2 GB; GQA
+# 12, QKV biases, a GELU MLP).  The launcher
 # runs the kinds of TRAIN_KIND_LAUNCHER once each, at their depth, in bf16,
 # for TRAIN_KIND_STEPS steps (the step-0 checkpoint into TRAIN_CKPT,
-# removed); moonshot runs the step and the gradient check only; each dtype's
+# removed); the others run the step and the gradient check only; each dtype's
 # step is timed
 # over TRAIN_KIND_TIMED steps after TRAIN_KIND_WARM, whose losses must be
 # finite and falling.  The launcher's default learning rate, 1e-3, sends the
 # loss of recurrentgemma-2b, whisper-small and moonshot up past its start in
 # the first steps (the first update is the largest Adam makes, ~lr on every
-# weight); they train at 3e-5 (``--lr``), xlstm-1.3b at the default.
+# weight); they train at 3e-5 (``--lr``), xlstm-1.3b at the default.  So do
+# gemma-7b and llama-3.2-vision-11b; starcoder2-15b trains at 3e-6: at 3e-5
+# its first step (6e-6 in warm-up) raised the loss on the very batch it was
+# taken on, 11.365 -> 12.599 in float32, through the hand and the plain
+# attention alike, bit for bit (measured on one H100); at 1e-5 the loss
+# fell, rose and fell again over four steps, at 3e-6 it fell at each.
 TRAIN_KINDS = (("recurrentgemma-2b", 1, 4096, None, 3e-5),
                ("whisper-small", 8, 448, None, 3e-5),
                ("xlstm-1.3b", 1, 512, 8, 1e-3),
-               ("moonshot-v1-16b-a3b", 8, 512, 4, 3e-5))
+               ("moonshot-v1-16b-a3b", 8, 512, 4, 3e-5),
+               ("gemma-7b", 8, 512, 4, 3e-5),
+               ("llama-3.2-vision-11b", 8, 512, 5, 3e-5),
+               ("starcoder2-15b", 8, 512, 4, 3e-6))
 TRAIN_KIND_STEPS = 2
 TRAIN_KIND_LAUNCHER = ("recurrentgemma-2b", "whisper-small", "xlstm-1.3b")
 TRAIN_KIND_WARM, TRAIN_KIND_TIMED = 1, 1
@@ -1136,8 +1153,9 @@ def bwd_path_cases():
     lengths, the reduced configs' narrow heads (hd 16 and 32: phase
     ``train``'s restart run trains one), a q_offset > 0 (Sq < Skv) under
     a window narrower than a tile (the tile skip's both bounds), GQA groups
-    of 10 and 11, and a q_offset < 0 (Sq > Skv: rows that keep no key, so
-    every tile is visited)."""
+    of 10 and 11, a q_offset < 0 (Sq > Skv: rows that keep no key, so
+    every tile is visited), and phase ``train``'s dense archs
+    (``archs_bwd_cases``)."""
     return [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64, True, None),
             (1, 4096, 4096, 10, 1, 256, True, 2048),
             (2, 190, 333, 10, 1, 256, True, 100),
@@ -1154,7 +1172,26 @@ def bwd_path_cases():
             (2, 160, 300, 8, 2, 64, True, 40),
             (1, 128, 128, 20, 2, 64, True, None),
             (1, 100, 100, 11, 1, 32, True, None),
-            (1, 150, 90, 4, 2, 64, True, None)]
+            (1, 150, 90, 4, 2, 64, True, None),
+            *archs_bwd_cases().values()]
+
+
+def archs_bwd_cases():
+    """{arch: its backward case} for phase ``archs``' three archs at
+    ARCHS_FORWARD, the shape phase ``train`` trains them at: each arch's
+    self attention, llama-3.2-vision-11b's cross attention in its place
+    (``archs_timed``).  gemma-7b: 16 query heads over 16 KV heads of 256,
+    causal (hd 256 at a GQA group of 1, so dK and dV go straight to the
+    outputs); starcoder2-15b: 48 over 4 of 128, causal (the sum pass over
+    12 partials); llama-3.2-vision-11b: 32 over 8 of 128, non-causal over
+    1,601 keys (25 tiles and a last one of one key)."""
+    B, S = ARCHS_FORWARD
+    out = {}
+    for arch, Skv, causal in archs_timed():
+        c = cfg_registry.get(arch)
+        out[arch] = (B, S, Skv, c.n_heads, c.n_kv_heads, c.head_dim, causal,
+                     None)
+    return out
 
 
 def bwd_inputs(case, dt, gen):
@@ -4522,8 +4559,9 @@ def train_kind(store, arch, B, S, depth, lr):
     PM2Lat's training step against it (no bar; none without a ``store``,
     as ``scripts/flash_bwd_check.py --kinds`` runs it) and, for a kind
     with attention, (d) the gradients against the plain attention on the
-    card (``train_grad_check``).  Each model is freed before the next is
-    built.  Fails on any check."""
+    card (``train_grad_check``; for phase ``archs``' archs in bf16, with
+    the plain attention's own bf16 gradients against its float32 ones).
+    Each model is freed before the next is built.  Fails on any check."""
     t0 = time.perf_counter()
     cfg0 = cfg_registry.get(arch)
     if depth is not None:
@@ -4550,7 +4588,7 @@ def train_kind(store, arch, B, S, depth, lr):
         if store is not None:
             r["prediction"] = train_prediction(store, cfg, r["step"], B, S)
         if calls:
-            r["grads"] = train_grad_check(cfg, B, S)
+            r["grads"] = train_grad_check(cfg, B, S, room=arch in ARCHS)
         emit("train_kind", arch=arch, dtype=dname, **r)
         rec[dname] = r
     rec["seconds"] = time.perf_counter() - t0
@@ -5151,12 +5189,34 @@ class SameRouting:
             h.remove()
 
 
-def train_grad_check(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ):
+class ComputeDtype:
+    """Inside the block, ``model`` computes in ``dname``: its config's
+    compute dtype swapped, its weights as they are."""
+
+    def __init__(self, model, dname):
+        self.model, self.dname = model, dname
+
+    def __enter__(self):
+        self.saved = self.model.cfg
+        self.model.cfg = dataclasses.replace(self.saved,
+                                             compute_dtype=self.dname)
+        return self
+
+    def __exit__(self, *exc):
+        self.model.cfg = self.saved
+
+
+def train_grad_check(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ, room=False):
     """(d): one step's loss and gradients (``loss_fn`` at batch 0 of (B,
     S), remat on) through the hand kernels and through the plain attention
     on the card, each parameter's max |d| / max |g| held to
     TRAIN_GRAD_TOL; the hand pass launches one backward a call
-    ``train_attention_calls`` counts, the plain pass none.  An MoE
+    ``train_attention_calls`` counts, the plain pass none.  With ``room``
+    in bf16, a third pass computes in float32 through the plain attention
+    on the same weights and batch (context too): the plain bf16
+    gradients' max |d| / max |g| against it (``plain_bf16_vs_f32``,
+    reported, no limit) is the bf16 rounding of the whole step, beside
+    which the hand-against-plain reading and TRAIN_GRAD_TOL stand.  An MoE
     model's plain pass routes every token to the experts the hand pass
     chose (``SameRouting``): top-k is discrete, and the two attentions'
     outputs, ~2^-8 apart in bf16, flip near-tied choices and with them
@@ -5181,6 +5241,18 @@ def train_grad_check(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ):
             - before["flash_attention_bwd"]
         out.append((float(loss.detach()), grads, launched))
     (l_hand, g_hand, n_hand), (l_plain, g_plain, n_plain) = out
+    f32_room = None
+    if room and cfg.compute_dtype == "bfloat16":
+        with PlainAttentionOnCard(), ComputeDtype(model, "float32"):
+            loss, _ = tobj.loss_fn(model, batch, remat=True)
+            g32 = torch.autograd.grad(loss, list(params.values()))
+        r = {name: rel_max(a, b) for name, a, b in zip(params, g_plain, g32)}
+        f32_room = {"max_rel_err": max(r.values()),
+                    "worst_param": max(r, key=r.get),
+                    "loss_f32": float(loss.detach()),
+                    "rel_err_by_param": dict(sorted(
+                        r.items(), key=lambda kv: -kv[1])[:12])}
+        del g32, loss
     errs = {name: rel_max(a, b) for name, a, b in zip(params, g_hand, g_plain)}
     worst = max(errs, key=errs.get)
     bad = [n for n, e in errs.items()
@@ -5194,6 +5266,8 @@ def train_grad_check(cfg, B=TRAIN_BATCH, S=TRAIN_SEQ):
            "bwd_launches": [n_hand, n_plain]}
     if routing is not None:
         rec["routing_differs"] = routing.differ
+    if f32_room is not None:
+        rec["plain_bf16_vs_f32"] = f32_room
     del model, params, g_hand, g_plain, out, batch, routing
     gc.collect()
     torch.cuda.empty_cache()
@@ -5537,8 +5611,10 @@ def bwd_line(gen, by_path, launches_by_kind):
     ``float32``, float32 (``bwd_case``); its ``hd256`` the same at
     recurrentgemma-2b's train shape (``bwd_path_cases()[1]``: B 1 x S
     4096, 10 heads over 1 at hd 256, causal under its 2,048-key window)
-    and the hd-256 launches on each path; ``launches_by_kind``: one bf16
-    training step's hand launches by model kind (phase ``train``)."""
+    and the hd-256 launches on each path; its ``archs`` the same at phase
+    ``train``'s dense archs (``archs_bwd_cases``); ``launches_by_kind``:
+    one bf16 training step's hand launches by model kind (phase
+    ``train``)."""
     rows = {}
     for case in bwd_path_cases()[:2]:
         rows[case] = {str(dt).split(".")[1]: bwd_case(case, dt, gen)
@@ -5556,11 +5632,18 @@ def bwd_line(gen, by_path, launches_by_kind):
                 p: n.get("flash_attention_bwd@hd256", 0)
                 for p, n in by_path.items()},
                 "shape": [1, S2, H2, Hkv2, hd2], "window": window, **wide},
+            "archs": [{"arch": arch, "case": list(case),
+                       **{str(dt).split(".")[1]: bwd_case(case, dt, gen)
+                          for dt in (torch.bfloat16, torch.float32)}}
+                      for arch, case in archs_bwd_cases().items()],
             "launches_by_kind": launches_by_kind,
             "tolerance": "max |d| / max |plain| per gradient, BWD_TOL"}
-    if not all(row["ok"] for row in wide.values()):
-        raise AssertionError(f"flash backward at hd 256: max errs "
-                             f"{[row['max_rel_err'] for row in wide.values()]}")
+    held = [*wide.values(), *(r[d] for r in line["archs"]
+                              for d in ("bfloat16", "float32"))]
+    if not all(row["ok"] for row in held):
+        raise AssertionError(f"flash backward at hd 256 and the archs' "
+                             f"shapes: max errs "
+                             f"{[row['max_rel_err'] for row in held]}")
     return line
 
 
